@@ -1,13 +1,14 @@
-"""ephemeris_explorer_tpu: a TPU-native ephemeris generation & exploration engine.
+"""ephemeris_explorer_tpu: an accelerator-native ephemeris generation &
+exploration engine.
 
 A ground-up JAX/XLA rebuild of the compute core of Canleskis/ephemeris-explorer
 (N-body propagation, piecewise-polynomial ephemerides, spacecraft flight-plan
-propagation) designed TPU-first: lax.scan time stepping, batched least-squares
-fits, vmapped spacecraft ensembles, shard_map scale-out.
+propagation): lax.scan time stepping, batched least-squares fits, vmapped
+spacecraft ensembles, shard_map scale-out.
 
-f64 note: the engine computes in f64.  On CPU that is native IEEE double; on
-TPU, XLA lowers f64 to fast double-word f32 emulation (~48-bit mantissa),
-which is the extended-precision strategy this package is designed around.
+The engine computes in native IEEE f64 (on the CPU and on the GPU alike);
+the extended precisions keep the position state as f32 expansions beyond
+what f64 holds (docs/ACCURACY.md).
 """
 
 import os as _os
@@ -18,17 +19,24 @@ import jax as _jax
 # precision).  Must run before any array is created.
 _jax.config.update("jax_enable_x64", True)
 
-# Persistent compilation cache: scan-heavy programs take minutes to compile
-# through remote-compile TPU setups; cached executables bring warm starts to
-# seconds.  Override the location with EET_JAX_CACHE_DIR ("" disables).
-_cache_dir = _os.environ.get(
-    "EET_JAX_CACHE_DIR",
-    _os.path.join(_os.path.expanduser("~"), ".cache", "ephemeris_explorer_tpu", "jax"),
-)
-if _cache_dir:
-    _os.makedirs(_cache_dir, exist_ok=True)
+
+def compile_cache_dir() -> str | None:
+    """Where the package keeps JAX's persistent compilation cache.
+
+    None when ``JAX_COMPILATION_CACHE_DIR`` is set: JAX then reads the
+    directory from the environment itself.  Otherwise a fixed path inside
+    the checkout (``.jax_cache/``, listed in .gitignore): the path is part
+    of the cache key, so it must not move between runs.
+    """
+    if _os.environ.get("JAX_COMPILATION_CACHE_DIR"):
+        return None
+    return _os.path.join(_os.path.dirname(_os.path.dirname(__file__)), ".jax_cache")
+
+
+_cache_dir = compile_cache_dir()
+if _cache_dir is not None:
     _jax.config.update("jax_compilation_cache_dir", _cache_dir)
-    _jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+_jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
 
 from . import ftime  # noqa: E402
 from .ftime import Duration, Epoch  # noqa: E402

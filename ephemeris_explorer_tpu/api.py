@@ -271,8 +271,7 @@ class PredictionTask:
                 if self._bucket_tails and self._sync is None and n < self._chunk:
                     # bucket the tail chunk to the next power of two (the
                     # span overshoots slightly): arbitrary extension spans
-                    # otherwise compile a fresh scan shape each — minutes
-                    # per shape through a remote-compile toolchain.  The
+                    # otherwise compile a fresh scan shape each.  The
                     # startup chunk must cover the multistep order.
                     n = bucket_tail(n, self._chunk, min_n=self._prop._tab.order + 1)
                 first_seg = self._prop._segments_done(self._prop.steps_done)

@@ -173,11 +173,10 @@ class Apsides:
 # Event detection is small, shape-irregular work (K <= a few thousand knots,
 # B ~ tens of bodies, trajectory lengths differing per ship), which is the
 # WRONG shape for the device: every distinct knot count would trigger a fresh
-# XLA compile (minutes through a remote-compile toolchain) and each refinement
-# costs host<->device round trips.  The whole pass runs in plain numpy f64
-# against a host snapshot of the packed ephemeris — native IEEE double, no
-# jit, no transfers.  (TPU-first means putting the O(N^2 * steps) integration
-# on the device, not this.)
+# XLA compile and each refinement costs host<->device round trips.  The
+# whole pass runs in plain numpy f64 against a host snapshot of the packed
+# ephemeris — native IEEE double, no jit, no transfers.  (The device's job
+# is the O(N^2 * steps) integration, not this.)
 # ---------------------------------------------------------------------------
 
 

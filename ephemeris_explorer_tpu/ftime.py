@@ -1,7 +1,7 @@
 """Time scalars: TAI epochs and durations.
 
-TPU-native rebuild of the reference's ``ftime`` crate
-(``/root/reference/ftime/src/epoch.rs``, ``duration.rs``): an ``Epoch`` is a
+Rebuild of the reference's ``ftime`` crate
+(``ftime/src/epoch.rs``, ``duration.rs``): an ``Epoch`` is a
 plain f64 count of TAI seconds since 1958-01-01T00:00:00 and a ``Duration`` is
 a plain f64 count of seconds.  Parse/format are byte-compatible with the
 reference ("YYYY-MM-DD HH:MM:SS[.mmm]" epochs, "1 y 2 d 3 h 4 m 5 s 6 ms"

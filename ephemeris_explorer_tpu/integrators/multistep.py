@@ -4,7 +4,7 @@ Stormer-Cowell) as scan-friendly pure functions.
 Rebuilds ``integration/src/multistep`` (first_order.rs, second_order/mod.rs,
 second_order/cowell.rs): the ring buffer of past states becomes a dense
 ``(ORDER, ...)`` array in the scan carry, most-recent first; the weighted sums
-become fused broadcast-reductions (VPU friendly), and the startup phase (``mod.rs:202-224``:
+become fused broadcast-reductions, and the startup phase (``mod.rs:202-224``:
 ORDER full steps of the starter method, each split into ``substeps``
 sub-steps) is an unrolled traced loop.
 
@@ -141,9 +141,6 @@ def elm2_step(
     cb = jnp.asarray(tab.cowell_beta_n, carry.ys.dtype)
 
     def wsum(coeffs, stack):
-        # explicit broadcast+reduce: a tensordot here would lower to an
-        # emulated-f64 dot_general on TPU (slow MXU path) instead of fused
-        # VPU elementwise ops
         shape = (-1,) + (1,) * (stack.ndim - 1)
         return jnp.sum(coeffs.reshape(shape) * stack, axis=0)
 
@@ -251,9 +248,9 @@ def elm1_step(tab: ELMTableau, f, h, carry: ELM1Carry) -> ELM1Carry:
 # ("Double<T>", solar_system_convergence.rs:12-172) because plain-f64
 # accumulation error dominates truncation for fast moons (Phobos' 7.6 h
 # period at 10-minute steps).  This variant keeps positions/velocities as
-# TwoFloat pairs (double-double on CPU f64; quad-word on TPU's emulated f64)
-# while evaluating the O(N^2) force in base precision - the state update is
-# O(N * ORDER) so the extra arithmetic is free next to the force evaluation.
+# TwoFloat pairs (double-double over f64) while evaluating the O(N^2)
+# force in base precision - the state update is O(N * ORDER) so the extra
+# arithmetic is free next to the force evaluation.
 
 from ..ops import eft
 from ..ops.eft import TwoFloat
@@ -466,17 +463,15 @@ def elm2_step_cf(tab: ELMTableau, accel_dd, h, carry: ELM2CarryDD) -> ELM2CarryD
 
 
 # ---------------------------------------------------------------------------
-# Expansion-state variant (quad-f32 limbs): full accuracy on TPU
+# Expansion-state variant (quad-f32 limbs): beyond-f64 position state
 # ---------------------------------------------------------------------------
 #
-# On TPU, f64 is double-word f32 emulation with non-correctly-rounded ops, so
-# both the plain and the TwoFloat-compensated states bottom out at ~2^-48 and
-# drift ~20 km/yr against CPU f64 on fast moons (measured).  Raw f32 ops ARE
-# exact IEEE, so the position state is kept as a 4-limb f32 expansion
-# (ops/expansion.py, ~2^-90): the ELM2 alpha combination uses exact +-2^k
-# scalings and expansion adds, and only the tiny h^2-increment passes through
-# base precision.  The two leading limbs are exactly the df64 pair the Pallas
-# force kernel consumes.
+# A plain f64 state rounds every position update at 2^-53 of the
+# heliocentric radius, which on fast moons accumulates into a ~0.1 km
+# error over 60 days (docs/ACCURACY.md).  Here the position state is a
+# 4-limb f32 expansion (ops/expansion.py, ~2^-90): the ELM2 alpha
+# combination uses exact +-2^k scalings and expansion adds, and only the
+# tiny h^2-increment passes through base precision.
 
 from ..ops import expansion as ex
 
@@ -533,11 +528,9 @@ def elm2_init_q(
     ``y0_limbs`` (a K-tuple of f32 limb arrays, e.g. from
     :func:`ops.expansion.from_f64_host`) supplies the initial position
     EXACTLY.  Without it the startup lifts ``y0`` with ``ex.from_f64``,
-    which on TPU sees the emulated-f64 TRANSFER rounding of the host
-    value (~2^-49 relative of the heliocentric radius) — a few-µm initial
-    condition error that becomes a secular ~m/yr along-track drift of
-    close moons (measured in docs/ACCURACY.md round 3).  Callers whose
-    initial state originates in host f64 should always pass ``y0_limbs``.
+    which is exact only where the device holds real binary64 values.
+    Callers whose initial state originates in host f64 should always pass
+    ``y0_limbs``.
 
     When ``accel_limbs(t, (l0, l1, l2)[, dy])`` is given (the same limb
     kernel the main scan uses), every startup force evaluation sees the
@@ -641,12 +634,11 @@ def _two_sum_reduce(vals):
     (6 fused elementwise ops), so the whole reduce dispatches ~6*log2(M)
     ops instead of M sequential compensated adds.
 
-    CAUTION: only reliable eager or traced-for-TPU.  Jitted on XLA:CPU
-    the fused composition folds the error terms to their algebraic zero
-    (measured: exact standalone, 7e-6 relative once fused after the
-    two_prod chain; ``lax.optimization_barrier`` around ``s``/``bb``/the
-    whole level does NOT survive CPU fusion codegen).  Callers route CPU
-    traces to native f64 instead — see :func:`_wsum_precise`.
+    CAUTION: jitted on XLA:CPU the fused composition folds the error terms
+    to their algebraic zero (measured: exact standalone, 7e-6 relative
+    once fused after the two_prod chain; ``lax.optimization_barrier``
+    does NOT survive CPU fusion codegen).  :func:`_wsum_precise` routes
+    such platforms to native f64 instead.
     """
     errs = []
     cur = vals
@@ -662,51 +654,100 @@ def _two_sum_reduce(vals):
     return cur[0], errs
 
 
-def _wsum_precise(weights, dd_hi, dd_lo) -> tuple:
-    """sum_j weights[j] * (dd_hi[j] + dd_lo[j]) as a 4-limb f32 expansion.
+def _wsum_dot(ws, dd_hi, dd_lo) -> tuple:
+    """Native-f64 twin of :func:`_wsum_cascade`: one correctly-rounded f64
+    product + sum per term (~2^-53 * cond ~ 1e-14 relative here), split
+    back into f32 limbs."""
+    import numpy as np
 
-    The beta rows cancel ~29x (QT12 c_dy: sum(|w_j f|)/|sum w_j f|), so an
-    (emulated-)f64 dot loses ~2^-48 * 29 of the RESULT per step — measured
-    as the dominant per-step noise of the expansion engines once the force
-    is 3-limb grade (docs/ACCURACY.md round 4).  Here each term is formed
-    with exact f32 two_prods (weights pre-split into three f32 limbs
-    host-side) and the terms accumulate through a CASCADED error-free
-    reduction, so cancellation does NOT amplify rounding.
+    # needs REAL float64 — with x64 disabled these ops silently run in f32
+    # and the grade collapses to ~1e-7
+    assert jax.config.x64_enabled, (
+        "_wsum_dot requires jax_enable_x64 (the package enables it on import)"
+    )
+    bshape = (len(ws),) + (1,) * (dd_hi.ndim - 1)
+    w64 = jnp.asarray(np.array(ws, np.float64).reshape(bshape))
+    r = jnp.sum(
+        w64 * (dd_hi.astype(jnp.float64) + dd_lo.astype(jnp.float64)), axis=0
+    )
+    l0, l1, l2 = eft.f64_limbs(r, 3)
+    return (l0, l1, l2, jnp.zeros_like(l0))
 
-    Accumulation strategy (round 4, second pass): the first version renormed
-    each term to a 4-limb expansion and tree-reduced with ex.add — correct,
-    but ~130 fused ops per tree level; at generation scale (N=32) the scan
-    body is op-DISPATCH bound and the chain cost 985 -> 650 sim-days/s.
-    This version never builds per-term expansions.  It splits the sum by
-    magnitude class and uses :func:`_two_sum_reduce` (6 ops/level):
+
+def _wsum_cascade(ws, dd_hi, dd_lo) -> tuple:
+    """sum_j ws[j] * (dd_hi[j] + dd_lo[j]) through exact f32 EFTs.
+
+    Each term is formed with exact f32 two_prods (weights pre-split into
+    three f32 limbs host-side) and the terms accumulate through a CASCADED
+    error-free reduction, so cancellation does NOT amplify rounding.  It
+    splits the sum by magnitude class and uses :func:`_two_sum_reduce`
+    (6 ops/level):
 
       level 1: exact tree sum of the leading products p       (~|term|)
       level 2: exact tree sum of {level-1 roundings, pe, q, r}    (~2^-24)
       level 3: exact tree sum of {level-2 roundings, s}           (~2^-48)
       level 4: plain f32 sum of the level-3 roundings             (~2^-62)
 
-    Levels 1-3 are error-free transforms (two_sum captures every rounding
-    and feeds it down), so the ONLY rounding in the whole reduction is
-    level 4's, at ~2^-80 of the largest term — far below the 2^-60-grade
-    budget, independent of cancellation.  The roots combine with two more
+    Levels 1-3 are error-free transforms, so the ONLY rounding in the
+    whole reduction is level 4's, at ~2^-80 of the largest term,
+    independent of cancellation.  The roots combine with two more
     two_sums into a 4-limb expansion.
 
-    Backend routing: raw f32 EFT is exact eagerly and compiled for TPU
-    (see ops/expansion.py), but XLA:CPU's codegen reassociates the fused
-    composition and folds the error-free trees into plain f32 sums —
-    measured 8.4e-19 eager vs 6.6e-6 jitted, IDENTICALLY with
-    ``lax.optimization_barrier`` on every two_sum intermediate, on the
-    whole reduce, and with --xla_cpu_enable_fast_math=false (the barrier
-    survives HLO but not LLVM emission).  CPU TRACES therefore route to a
-    native-f64 dot (one correctly-rounded f64 product + sum per term:
-    ~2^-53 * cond ~ 1e-14 relative here, the same grade XLA:CPU left the
-    old renorm chain at, and far under the 1e-12 CI gate); eager and TPU
-    traces keep the exact cascade.  Production generation runs on TPU, so
-    the precise grade is what ships.
-
     The weight limbs are broadcast to full arrays (never f32 scalars):
-    XLA:CPU re-rounds pure-scalar f32 sub-DAGs (measured hazard, see
-    ops/pallas_elm2.py module docstring).
+    XLA:CPU re-rounds pure-scalar f32 sub-DAGs (measured hazard, see the
+    ops/eft.py module docstring).
+    """
+    import numpy as np
+
+    bshape = (len(ws),) + (1,) * (dd_hi.ndim - 1)
+    limbs = [_split3_host(w) for w in ws]
+
+    def const(vals):
+        return jnp.asarray(np.array(vals, np.float32).reshape(bshape))
+
+    b0 = const([l[0] for l in limbs])
+    b1 = const([l[1] for l in limbs])
+    b2 = const([l[2] for l in limbs])
+    b0h, b0l = (
+        const(v) for v in zip(*(_dekker_split_f32_host(l[0]) for l in limbs))
+    )
+    b1h, b1l = (
+        const(v) for v in zip(*(_dekker_split_f32_host(l[1]) for l in limbs))
+    )
+
+    hi_h, hi_l = eft.split(dd_hi)
+    lo_h, lo_l = eft.split(dd_lo)
+    p, pe = eft.two_prod_presplit(dd_hi, hi_h, hi_l, b0, b0h, b0l)
+    q, qe = eft.two_prod_presplit(dd_lo, lo_h, lo_l, b0, b0h, b0l)
+    r, re = eft.two_prod_presplit(dd_hi, hi_h, hi_l, b1, b1h, b1l)
+    s = qe + re + dd_lo * b1 + dd_hi * b2
+
+    s1, e1 = _two_sum_reduce(p)
+    s2, e2 = _two_sum_reduce(jnp.concatenate([*e1, pe, q, r], axis=0))
+    s3, e3 = _two_sum_reduce(jnp.concatenate([*e2, s], axis=0))
+    s4 = (
+        jnp.sum(jnp.concatenate(e3, axis=0), axis=0)
+        if e3
+        else jnp.zeros_like(s3)
+    )
+
+    h1, t1 = eft.two_sum(s1, s2)
+    h2, t2 = eft.two_sum(t1, s3)
+    return (h1, h2, t2 + s4, jnp.zeros_like(h1))
+
+
+def _wsum_precise(weights, dd_hi, dd_lo) -> tuple:
+    """sum_j weights[j] * (dd_hi[j] + dd_lo[j]) as a 4-limb f32 expansion.
+
+    The beta rows cancel ~29x (QT12 c_dy: sum(|w_j f|)/|sum w_j f|), so a
+    dot in base precision loses ~29 ulps of the RESULT per step.  Eager
+    calls use the exact cascade (:func:`_wsum_cascade`).  Traces route per
+    LOWERING platform (``lax.platform_dependent`` resolves at lowering
+    time, so a CPU-committed trace on a GPU host still gets the CPU
+    branch): XLA:CPU folds the cascade's error-free trees into plain f32
+    sums (measured 8.4e-19 eager vs 6.6e-6 jitted, with or without
+    optimization barriers), so CPU traces use the native-f64 dot
+    (:func:`_wsum_dot`).
     """
     import numpy as np
 
@@ -716,73 +757,17 @@ def _wsum_precise(weights, dd_hi, dd_lo) -> tuple:
         dd_lo = dd_lo[np.array(idx)]
     ws = [weights[j] for j in idx]
 
-    # (J, 1, ...) weight-limb constants + their host-side Dekker splits
-    bshape = (len(ws),) + (1,) * (dd_hi.ndim - 1)
-
-    def _cpu_dot():
-        # the XLA:CPU route needs REAL float64 — with x64 disabled these
-        # ops silently run in f32 and the grade collapses to ~1e-7
-        assert jax.config.x64_enabled, (
-            "_wsum_precise's XLA:CPU fallback requires jax_enable_x64 "
-            "(the package enables it on import)"
-        )
-        w64 = jnp.asarray(np.array(ws, np.float64).reshape(bshape))
-        r = jnp.sum(
-            w64 * (dd_hi.astype(jnp.float64) + dd_lo.astype(jnp.float64)),
-            axis=0,
-        )
-        l0 = r.astype(jnp.float32)
-        r1 = r - l0.astype(jnp.float64)
-        l1 = r1.astype(jnp.float32)
-        l2 = (r1 - l1.astype(jnp.float64)).astype(jnp.float32)
-        return (l0, l1, l2, jnp.zeros_like(l0))
-
-    def _cascade():
-        limbs = [_split3_host(w) for w in ws]
-
-        def const(vals):
-            return jnp.asarray(np.array(vals, np.float32).reshape(bshape))
-
-        b0 = const([l[0] for l in limbs])
-        b1 = const([l[1] for l in limbs])
-        b2 = const([l[2] for l in limbs])
-        b0h, b0l = (
-            const(v) for v in zip(*(_dekker_split_f32_host(l[0]) for l in limbs))
-        )
-        b1h, b1l = (
-            const(v) for v in zip(*(_dekker_split_f32_host(l[1]) for l in limbs))
-        )
-
-        hi_h, hi_l = eft.split(dd_hi)
-        lo_h, lo_l = eft.split(dd_lo)
-        p, pe = eft.two_prod_presplit(dd_hi, hi_h, hi_l, b0, b0h, b0l)
-        q, qe = eft.two_prod_presplit(dd_lo, lo_h, lo_l, b0, b0h, b0l)
-        r, re = eft.two_prod_presplit(dd_hi, hi_h, hi_l, b1, b1h, b1l)
-        s = qe + re + dd_lo * b1 + dd_hi * b2
-
-        s1, e1 = _two_sum_reduce(p)
-        s2, e2 = _two_sum_reduce(jnp.concatenate([*e1, pe, q, r], axis=0))
-        s3, e3 = _two_sum_reduce(jnp.concatenate([*e2, s], axis=0))
-        s4 = (
-            jnp.sum(jnp.concatenate(e3, axis=0), axis=0)
-            if e3
-            else jnp.zeros_like(s3)
-        )
-
-        h1, t1 = eft.two_sum(s1, s2)
-        h2, t2 = eft.two_sum(t1, s3)
-        return (h1, h2, t2 + s4, jnp.zeros_like(h1))
-
     if isinstance(dd_hi, jax.core.Tracer):
-        # Route per LOWERING platform, not per jax.default_backend():
-        # tracing for a CPU device on a TPU-equipped host (jit(...,
-        # backend='cpu') / a jax.default_device(cpu) context) still
-        # reports 'tpu' as the default backend, yet the trace lowers
-        # under XLA:CPU where codegen folds the cascade (ADVICE r4).
-        # lax.platform_dependent resolves the branch at lowering time,
-        # so each platform gets the arithmetic that is exact THERE.
-        return jax.lax.platform_dependent(cpu=_cpu_dot, default=_cascade)
-    return _cascade()
+        return jax.lax.platform_dependent(
+            cpu=lambda: _wsum_dot(ws, dd_hi, dd_lo),
+            default=lambda: _wsum_cascade(ws, dd_hi, dd_lo),
+        )
+    return _wsum_cascade(ws, dd_hi, dd_lo)
+
+
+def _split_pair(x) -> TwoFloat:
+    """Split an f64 array into an (hi, lo) f32 pair (rounds at ~2^-48)."""
+    return TwoFloat(*eft.f64_limbs(x, 2))
 
 
 def elm2_step_q(
@@ -798,21 +783,19 @@ def elm2_step_q(
 
     `accel(t, y_f64)` is evaluated at the base-precision rounding of the
     expansion position.  When `accel_limbs(t, (l0, l1, l2))` is given (the
-    3-limb Pallas kernel), the force sees error-free position differences -
+    3-limb force), the force sees error-free position differences -
     the remaining noise source for close moon pairs at century scale.
 
     ``with_velocity=False`` defers the Cowell velocity (an 8-limb expansion
-    renorm + a 12-term f64 weighted sum per step, ~15% of the parity-engine
-    step time at N=4096) to :func:`elm2_velocity_q` at sample boundaries;
+    renorm + a 12-term f64 weighted sum per step) to :func:`elm2_velocity_q` at sample boundaries;
     the position update never reads ``dy``.  Requires a velocity-independent
     force.
 
     ``precise_sums=True`` computes the beta sum with :func:`_wsum_precise`
     over the (hi, lo) pair view of the acceleration ring instead of an
-    (emulated-)f64 dot — removing the ~2^-48 x cancellation per-step
-    increment noise.  The pair split of the ring is EXACT on TPU (emulated
-    f64 IS a pair); on native-f64 CPU it rounds at ~2^-48, so the flag is
-    a TPU-targeted rung.  Requires a concrete (non-traced) ``h``.
+    f64 dot.  The pair split of a native-f64 ring rounds at ~2^-48, so on
+    native-f64 devices the flag does not beat the f64 dot.  Requires a
+    concrete (non-traced) ``h``.
     """
     assert all(abs(c) in (0.0, 1.0, 2.0) for c in tab.c_y), tab.name
     sum1 = _exp_wsum_alpha(tab.c_y, carry.ys)
@@ -872,309 +855,3 @@ def elm2_velocity_q(
         return diff + ex.to_f64(_wsum_precise(wv, ddv.hi, ddv.lo))
     vel_sum = _f64_wsum(tab.cowell_beta_n, carry.ddys)
     return diff + vel_sum * (h / tab.cowell_beta_d)
-
-
-# ---------------------------------------------------------------------------
-# Fused expansion-state path (Pallas update kernel + pair-native force ring)
-# ---------------------------------------------------------------------------
-#
-# Same arithmetic family as ELM2CarryQ, but the acceleration ring lives as
-# raw (hi, lo) f32 pairs (the Pallas force kernel's native output) and the
-# whole position update runs inside one VMEM kernel (ops/pallas_elm2.py)
-# instead of an unfused elementwise chain over HBM.  On TPU this is
-# precision-neutral: the emulated-f64 ring it replaces is itself a ~2^-48
-# two-float pair.
-
-
-class ELM2CarryQF(NamedTuple):
-    t: jax.Array
-    ys: tuple          # 4-tuple of (ORDER, ..., 3) f32 limb arrays
-    dd: TwoFloat       # (ORDER, ..., 3) f32 pair ring, dd[j] = f(ys[j])
-    dy: jax.Array      # base-precision velocity (stale during scans)
-
-
-def elm2_qf_from_q(carry: ELM2CarryQ) -> ELM2CarryQF:
-    """Split the f64 acceleration ring into f32 pairs.
-
-    Exact on emulated-f64 backends (TPU), where the f64 values ARE two-f32
-    pairs; on native-f64 backends (CPU) the low word rounds at ~2^-48 —
-    the module's working precision, so precision-neutral either way.
-    """
-    return ELM2CarryQF(
-        t=carry.t, ys=carry.ys, dd=_split_pair(carry.ddys), dy=carry.dy
-    )
-
-
-def elm2_qf_to_q(carry: ELM2CarryQF) -> ELM2CarryQ:
-    """Exact conversion back (hi and lo both convert exactly to f64)."""
-    ddys = carry.dd.hi.astype(jnp.float64) + carry.dd.lo.astype(jnp.float64)
-    return ELM2CarryQ(t=carry.t, ys=carry.ys, ddys=ddys, dy=carry.dy)
-
-
-def elm2_init_qf(
-    tab: ELMTableau, accel, t0, y0, dy0, h, accel_limbs=None, y0_limbs=None
-) -> ELM2CarryQF:
-    return elm2_qf_from_q(
-        elm2_init_q(
-            tab, accel, t0, y0, dy0, h,
-            accel_limbs=accel_limbs, y0_limbs=y0_limbs,
-        )
-    )
-
-
-def elm2_step_qf(
-    tab: ELMTableau, accel_pair, h, carry: ELM2CarryQF, interpret: bool = False,
-    precise_sums: bool = False,
-) -> ELM2CarryQF:
-    """One fused multistep step (one force evaluation, one update kernel).
-
-    ``accel_pair(t, (l0, l1, l2)) -> (hi, lo)`` is the pair-returning force
-    (:func:`..ops.pallas_nbody.pairwise_accel_limbs_pair`).  Velocity is
-    always deferred (:func:`elm2_velocity_qf`).  ``precise_sums`` selects
-    the pair-precision beta sum inside the update kernel (the fused twin
-    of :func:`elm2_step_q`'s flag).
-    """
-    from ..ops.pallas_elm2 import elm2q_update
-
-    y_new = elm2q_update(
-        tab, h, carry.ys, carry.dd, interpret=interpret, precise=precise_sums
-    )
-    t_new = carry.t + h
-    fh, fl = accel_pair(t_new, (y_new[0], y_new[1], y_new[2]))
-
-    ys_new = tuple(
-        jnp.concatenate([nl[None], ol[: tab.order - 1]])
-        for nl, ol in zip(y_new, carry.ys)
-    )
-    dd_new = TwoFloat(
-        jnp.concatenate([fh[None], carry.dd.hi[: tab.order - 1]]),
-        jnp.concatenate([fl[None], carry.dd.lo[: tab.order - 1]]),
-    )
-    return ELM2CarryQF(t=t_new, ys=ys_new, dd=dd_new, dy=carry.dy)
-
-
-def elm2_velocity_qf(
-    tab: ELMTableau, carry: ELM2CarryQF, h, precise_sums: bool = False
-) -> jax.Array:
-    return elm2_velocity_q(tab, elm2_qf_to_q(carry), h, precise_sums=precise_sums)
-
-
-# ---------------------------------------------------------------------------
-# Fused two-float path: the f64-equivalent state as (hi, lo) f32 pairs
-# ---------------------------------------------------------------------------
-#
-# The plain ELM2Carry integrates in XLA's emulated f64 (~2^-48, unfused
-# elementwise chains).  This variant keeps the SAME working precision as
-# explicit TwoFloat pairs and runs the whole position update in one VMEM
-# kernel (ops/pallas_elm2.elm2f_update); the force ring holds the pair
-# kernels' native (hi, lo) output.  Headline/ensemble throughput path.
-
-
-class ELM2CarryF(NamedTuple):
-    t: jax.Array
-    ys: TwoFloat       # (ORDER, ..., 3) f32 pair ring, newest first
-    dd: TwoFloat       # (ORDER, ..., 3) f32 pair ring, dd[j] = f(ys[j])
-    dy: jax.Array      # base-precision velocity (stale during scans)
-
-
-def _split_pair(x) -> TwoFloat:
-    hi = x.astype(jnp.float32)
-    lo = (x - hi.astype(x.dtype)).astype(jnp.float32)
-    return TwoFloat(hi, lo)
-
-
-def elm2_f_from(carry: ELM2Carry) -> ELM2CarryF:
-    """Exact conversion of an f64 carry (hi + lo == the f64 values)."""
-    return ELM2CarryF(
-        t=carry.t,
-        ys=_split_pair(carry.ys),
-        dd=_split_pair(carry.ddys),
-        dy=carry.dy,
-    )
-
-
-def elm2_f_to(carry: ELM2CarryF) -> ELM2Carry:
-    comb = lambda p: p.hi.astype(jnp.float64) + p.lo.astype(jnp.float64)  # noqa: E731
-    return ELM2Carry(t=carry.t, ys=comb(carry.ys), ddys=comb(carry.dd), dy=carry.dy)
-
-
-def elm2_init_f(tab: ELMTableau, accel, t0, y0, dy0, h) -> ELM2CarryF:
-    return elm2_f_from(elm2_init(tab, accel, t0, y0, dy0, h))
-
-
-def elm2_step_f(
-    tab: ELMTableau, accel_pair, h, carry: ELM2CarryF, interpret: bool = False
-) -> ELM2CarryF:
-    """One fused two-float multistep step.
-
-    ``accel_pair(t, y: TwoFloat) -> TwoFloat`` evaluates the force from a
-    pair-state position of shape (..., 3) (e.g. the Pallas df64 kernels'
-    split interface).  Velocity is deferred (:func:`elm2_velocity_f`).
-    """
-    from ..ops.pallas_elm2 import elm2f_update
-
-    y_new = elm2f_update(tab, h, carry.ys, carry.dd, interpret=interpret)
-    t_new = carry.t + h
-    f_new = accel_pair(t_new, y_new)
-
-    shift = lambda new, ring: jnp.concatenate([new[None], ring[: tab.order - 1]])  # noqa: E731
-    return ELM2CarryF(
-        t=t_new,
-        ys=TwoFloat(shift(y_new.hi, carry.ys.hi), shift(y_new.lo, carry.ys.lo)),
-        dd=TwoFloat(shift(f_new.hi, carry.dd.hi), shift(f_new.lo, carry.dd.lo)),
-        dy=carry.dy,
-    )
-
-
-def elm2_velocity_f(tab: ELMTableau, carry: ELM2CarryF, h) -> jax.Array:
-    return elm2_velocity(tab, elm2_f_to(carry), h)
-
-
-# ---------------------------------------------------------------------------
-# Sublane-packed fused carries: rings stored (ORDER, SUB, M/SUB) across steps
-# ---------------------------------------------------------------------------
-#
-# The fused update kernels process each ring row as (1, M) — one of the
-# VPU's 8 sublanes.  The packed variants below store the rings with every
-# logical row split over SUB sublane rows, which makes the update kernel
-# 2.1x faster (measured round 2) WITHOUT the per-step HBM retiling that
-# made pack-at-the-boundary a net loss: the ring shift is a concatenate in
-# packed layout, and only y_new / f_new (one row each, not ORDER of them)
-# cross the packed<->logical boundary per step at the force interface.
-
-_PACK_SUB = 8  # all 8 VPU sublanes
-
-
-def _pack_ring(x, sub: int):
-    """(ORDER, ...) ring -> (ORDER, SUB, M/SUB)."""
-    o = x.shape[0]
-    return x.reshape(o, sub, -1)
-
-
-class ELM2CarryFP(NamedTuple):
-    t: jax.Array
-    ys: TwoFloat       # (ORDER, SUB, M/SUB) f32 pair ring, newest first
-    dd: TwoFloat       # (ORDER, SUB, M/SUB) f32 pair ring
-    dy: jax.Array      # base-precision velocity (stale during scans)
-
-
-def elm2_fp_from(carry: ELM2CarryF, sub: int = _PACK_SUB) -> ELM2CarryFP:
-    """Pack an ELM2CarryF's rings (pure reshape; exact)."""
-    return ELM2CarryFP(
-        t=carry.t,
-        ys=TwoFloat(_pack_ring(carry.ys.hi, sub), _pack_ring(carry.ys.lo, sub)),
-        dd=TwoFloat(_pack_ring(carry.dd.hi, sub), _pack_ring(carry.dd.lo, sub)),
-        dy=carry.dy,
-    )
-
-
-def elm2_fp_to(carry: ELM2CarryFP, shape: tuple) -> ELM2CarryF:
-    """Unpack back to the logical row shape (e.g. (N, 3) or (E, N, 3))."""
-    o = carry.ys.hi.shape[0]
-    unp = lambda x: x.reshape((o,) + tuple(shape))  # noqa: E731
-    return ELM2CarryF(
-        t=carry.t,
-        ys=TwoFloat(unp(carry.ys.hi), unp(carry.ys.lo)),
-        dd=TwoFloat(unp(carry.dd.hi), unp(carry.dd.lo)),
-        dy=carry.dy,
-    )
-
-
-def elm2_step_fp(
-    tab: ELMTableau, accel_pair, h, carry: ELM2CarryFP, shape: tuple,
-    interpret: bool = False,
-) -> ELM2CarryFP:
-    """One fused two-float multistep step on the PACKED carry.
-
-    ``shape`` is the logical row shape the force expects (static).
-    ``accel_pair(t, y: TwoFloat(shape)) -> TwoFloat(shape)`` as in
-    :func:`elm2_step_f`.  Bitwise-identical to elm2_step_f on the unpacked
-    view.  Velocity is deferred (:func:`elm2_velocity_fp`).
-    """
-    from ..ops.pallas_elm2 import elm2f_update_packed
-
-    y_new = elm2f_update_packed(tab, h, carry.ys, carry.dd, interpret=interpret)
-    t_new = carry.t + h
-    # packed <-> logical boundary: ONE row each way per step
-    y_rows = TwoFloat(
-        y_new.hi.reshape(shape), y_new.lo.reshape(shape)
-    )
-    f_rows = accel_pair(t_new, y_rows)
-    psh = y_new.hi.shape
-    f_new = TwoFloat(f_rows.hi.reshape(psh), f_rows.lo.reshape(psh))
-
-    shift = lambda new, ring: jnp.concatenate([new[None], ring[: tab.order - 1]])  # noqa: E731
-    return ELM2CarryFP(
-        t=t_new,
-        ys=TwoFloat(shift(y_new.hi, carry.ys.hi), shift(y_new.lo, carry.ys.lo)),
-        dd=TwoFloat(shift(f_new.hi, carry.dd.hi), shift(f_new.lo, carry.dd.lo)),
-        dy=carry.dy,
-    )
-
-
-def elm2_velocity_fp(tab: ELMTableau, carry: ELM2CarryFP, h, shape: tuple) -> jax.Array:
-    return elm2_velocity_f(tab, elm2_fp_to(carry, shape), h)
-
-
-class ELM2CarryQFP(NamedTuple):
-    t: jax.Array
-    ys: tuple          # 4-tuple of (ORDER, SUB, M/SUB) f32 limb rings
-    dd: TwoFloat       # (ORDER, SUB, M/SUB) f32 pair ring
-    dy: jax.Array      # base-precision velocity (stale during scans)
-
-
-def elm2_qfp_from(carry: ELM2CarryQF, sub: int = _PACK_SUB) -> ELM2CarryQFP:
-    """Pack an ELM2CarryQF's rings (pure reshape; exact)."""
-    return ELM2CarryQFP(
-        t=carry.t,
-        ys=tuple(_pack_ring(l, sub) for l in carry.ys),
-        dd=TwoFloat(_pack_ring(carry.dd.hi, sub), _pack_ring(carry.dd.lo, sub)),
-        dy=carry.dy,
-    )
-
-
-def elm2_qfp_to(carry: ELM2CarryQFP, shape: tuple) -> ELM2CarryQF:
-    o = carry.ys[0].shape[0]
-    unp = lambda x: x.reshape((o,) + tuple(shape))  # noqa: E731
-    return ELM2CarryQF(
-        t=carry.t,
-        ys=tuple(unp(l) for l in carry.ys),
-        dd=TwoFloat(unp(carry.dd.hi), unp(carry.dd.lo)),
-        dy=carry.dy,
-    )
-
-
-def elm2_step_qfp(
-    tab: ELMTableau, accel_pair, h, carry: ELM2CarryQFP, shape: tuple,
-    interpret: bool = False, precise_sums: bool = False,
-) -> ELM2CarryQFP:
-    """One fused expansion-state multistep step on the PACKED carry.
-
-    ``accel_pair(t, (l0, l1, l2)) -> (hi, lo)`` with limbs of logical
-    ``shape`` (the 3-limb Pallas force).  Bitwise-identical to
-    :func:`elm2_step_qf` on the unpacked view.
-    """
-    from ..ops.pallas_elm2 import elm2q_update_packed
-
-    y_new = elm2q_update_packed(
-        tab, h, carry.ys, carry.dd, interpret=interpret, precise=precise_sums
-    )
-    t_new = carry.t + h
-    limbs = tuple(l.reshape(shape) for l in y_new[:3])
-    fh, fl = accel_pair(t_new, limbs)
-    psh = y_new[0].shape
-    fh, fl = fh.reshape(psh), fl.reshape(psh)
-
-    shift = lambda new, ring: jnp.concatenate([new[None], ring[: tab.order - 1]])  # noqa: E731
-    return ELM2CarryQFP(
-        t=t_new,
-        ys=tuple(shift(nl, ol) for nl, ol in zip(y_new, carry.ys)),
-        dd=TwoFloat(shift(fh, carry.dd.hi), shift(fl, carry.dd.lo)),
-        dy=carry.dy,
-    )
-
-
-def elm2_velocity_qfp(
-    tab: ELMTableau, carry: ELM2CarryQFP, h, shape: tuple
-) -> jax.Array:
-    return elm2_velocity_qf(tab, elm2_qfp_to(carry, shape), h)

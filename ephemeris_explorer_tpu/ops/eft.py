@@ -1,15 +1,16 @@
 """Error-free transforms and two-float ("double-word") arithmetic.
 
-TPUs natively compute in f32; the reference integrates in f64 and its own
-convergence suite re-implements the state in double-double ("Double<T>",
-``/root/reference/ephemeris/tests/solar_system_convergence.rs:12-110``) as
-evidence that accumulation precision is the limiting factor.  This module
-provides the precision ladder for the rebuild:
+The reference integrates in f64 and its own convergence suite
+re-implements the state in double-double ("Double<T>",
+``ephemeris/tests/solar_system_convergence.rs:12-110``) as evidence that
+accumulation precision is the limiting factor.  This module provides the
+precision ladder for the rebuild:
 
-* ``TwoFloat`` over f32  -> ~49-bit "df64" arithmetic, TPU fast path
+* ``TwoFloat`` over f32  -> ~49-bit "df64" arithmetic (the f32 force rungs
+  and the expansion state's sums)
 * ``TwoFloat`` over f64  -> ~106-bit "dd128" arithmetic, CPU truth runs
 
-All ops are branch-free element-wise JAX ops (VPU-friendly) built from the
+All ops are branch-free element-wise JAX ops built from the
 classical error-free transforms (Knuth two-sum, Dekker split/two-product),
 written so that XLA's FMA contraction cannot break correctness (split-based
 products are exact at <=half-precision widths).
@@ -20,11 +21,12 @@ split of an f32[] scalar coefficient loses its low word under jit
 (~2^-25 instead of ~2^-48 relative error; optimization barriers do not
 help; eager mode and array operands are exact).  Rule: never feed a
 "dirty" f32 scalar (one whose Dekker split is inexact) into these ops
-under jit — pre-broadcast coefficients to arrays (see ops/pallas_elm2.py)
-or use exactly-splittable constants (+-0.5, 1.5, +-2^k are safe).
+under jit — pre-broadcast coefficients to arrays (see
+integrators/multistep._wsum_cascade) or use exactly-splittable constants
+(+-0.5, 1.5, +-2^k are safe).
 
 ``TwoFloat`` is a NamedTuple and therefore a pytree: it nests freely inside
-``lax.scan`` carries, ``vmap``, and Pallas kernels.
+``lax.scan`` carries and ``vmap``.
 """
 
 from __future__ import annotations
@@ -91,6 +93,24 @@ def to_f64(x: TwoFloat):
     import numpy as np
 
     return np.asarray(x.hi, dtype=np.float64) + np.asarray(x.lo, dtype=np.float64)
+
+
+def f64_limbs(x, k: int) -> tuple:
+    """Split traced f64 ``x`` into ``k`` f32 limbs, leading limb first.
+
+    Each limb is x's remainder rounded to f32 precision IN f64
+    (``reduce_precision``) and subtracted in f64; three limbs hold any
+    binary64 exactly.  The obvious ``x - f64(f32(x))`` is a convert round
+    trip that XLA:GPU folds to ``x - x`` (excess precision is allowed by
+    default there), which zeroes every limb after the first.
+    """
+    limbs = []
+    for _ in range(k - 1):
+        head = jax.lax.reduce_precision(x, exponent_bits=8, mantissa_bits=23)
+        limbs.append(head.astype(jnp.float32))
+        x = x - head
+    limbs.append(x.astype(jnp.float32))
+    return tuple(limbs)
 
 
 # ----------------------------------------------------------------------------

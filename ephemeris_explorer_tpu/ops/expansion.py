@@ -1,12 +1,9 @@
 """Fixed-size floating-point expansions over exact f32 arithmetic.
 
-TPU's native f64 is double-word f32 EMULATION whose operations are not
-correctly rounded, which breaks classical error-free transformations built on
-top of it (a compensated state over emulated f64 gains nothing - measured).
-Raw f32 ops on the VPU, however, ARE exactly rounded IEEE arithmetic, so we
-build extended precision directly on f32: a value is an unevaluated sum of
-``K`` f32 limbs (Shewchuk/QD-style expansion), giving ~24*K significant bits
-(K=4 -> ~2^-96, far beyond CPU f64).
+Raw f32 ops are exactly rounded IEEE arithmetic on every supported device,
+so extended precision is built directly on f32: a value is an unevaluated
+sum of ``K`` f32 limbs (Shewchuk/QD-style expansion), giving ~24*K
+significant bits (K=4 -> ~2^-96, far beyond f64).
 
 Only the handful of operations the long-horizon integrator state needs are
 provided:
@@ -15,7 +12,7 @@ provided:
 * :func:`add`          - expansion + expansion
 * :func:`scale_pow2i`  - exact scaling by small +-2^k integers (the ELM2
   alpha coefficients are all in {+-1, +-2})
-* :func:`from_f64` / :func:`to_f64` - exact lifts of (emulated) f64 values
+* :func:`from_f64` / :func:`to_f64` - exact lifts of f64 values
 
 Everything is element-wise jnp, vmappable and scan-friendly; an expansion is
 a tuple of K same-shaped f32 arrays (a pytree).
@@ -26,7 +23,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from .eft import two_sum
+from .eft import f64_limbs, two_sum
 
 K = 4  # limbs
 
@@ -75,16 +72,12 @@ def from_two(hi, lo) -> tuple:
 
 
 def from_f64_host(x) -> tuple:
-    """EXACT host-side limb split of real IEEE f64 (numpy) values.
-
-    Shipping an f64 array to the TPU rounds it to the emulated-f64 pair
-    (~2^-49 relative).  For heliocentric initial positions that truncation
-    is a few-micrometre perturbation of the initial conditions, which
-    shifts each close moon's semi-major axis and turns into a SECULAR
-    ~m/yr along-track drift (measured: Triton 5.4 m/yr, docs/ACCURACY.md
-    round 3).  Split on the host instead — three f32 limbs represent any
-    binary64 exactly — and ship the limbs; f32 transfers are exact.
-    """
+    """EXACT host-side limb split of IEEE f64 (numpy) values: three f32
+    limbs represent any binary64 exactly, and f32 transfers are exact, so
+    the device state starts bit-for-bit at the host's initial conditions
+    (an initial-condition error of even a few micrometres shifts a close
+    moon's semi-major axis into a secular along-track drift,
+    docs/ACCURACY.md)."""
     import numpy as np
 
     x = np.asarray(x, np.float64)
@@ -98,18 +91,13 @@ def from_f64_host(x) -> tuple:
 
 
 def from_f64(x) -> tuple:
-    """Exact lift of an f64 (or emulated-f64) array into f32 limbs."""
-    a0 = x.astype(jnp.float32)
-    r = x - a0.astype(x.dtype)
-    a1 = r.astype(jnp.float32)
-    r = r - a1.astype(x.dtype)
-    a2 = r.astype(jnp.float32)
-    z = jnp.zeros_like(a2)
-    return (a0, a1, a2, z)
+    """Exact lift of an f64 array into f32 limbs."""
+    a0, a1, a2 = f64_limbs(x, 3)
+    return (a0, a1, a2, jnp.zeros_like(a2))
 
 
 def to_f64(a: tuple):
-    """Round an expansion to (emulated) f64: sum low-to-high."""
+    """Round an expansion to f64: sum low-to-high."""
     out = a[-1].astype(jnp.float64)
     for x in a[-2::-1]:
         out = out + x.astype(jnp.float64)
@@ -117,7 +105,7 @@ def to_f64(a: tuple):
 
 
 def hi_lo(a: tuple):
-    """The two leading limbs - a ready-made df64 pair for the force kernel."""
+    """The two leading limbs - a ready-made df64 pair."""
     return a[0], a[1]
 
 

@@ -8,12 +8,13 @@ inverse-cube,
 
 with state in km, km/s and mu in km^3/s^2.
 
-TPU-first design: instead of the reference's scalar i<j pair loop, we build
-the full (N, N, 3) antisymmetric displacement tensor and reduce - XLA fuses
-this into a handful of VPU loops and, in f64, lowers to fast double-word f32
-emulation (measured ~115 Gpair/s at N=4096 on TPU v5e, ~28x the baseline
-throughput target before any Pallas tuning).  A tiled variant with masking
-is provided for use inside Pallas kernels / sharded settings.
+Instead of the reference's scalar i<j pair loop, :func:`pairwise_accel`
+builds the full (N, N, 3) antisymmetric displacement tensor and reduces it;
+XLA fuses this into a few loop kernels in native f64.  It is the plain
+reference every other force is checked against.  :func:`pairwise_accel_auto`
+is the production entry: it sends large systems on a GPU to the hand-written
+Pallas kernel (ops/pallas_nbody.py).  A row-tiled variant bounds the
+scratch memory for very large N.
 """
 
 from __future__ import annotations
@@ -36,9 +37,29 @@ def pairwise_accel(pos: jax.Array, mu: jax.Array) -> jax.Array:
     inv_r = jax.lax.rsqrt(r2)
     inv_r3 = jnp.where(eye, 0.0, inv_r * inv_r * inv_r)
     w = mu[None, :] * inv_r3                       # (N, N): weight of j on i
-    # NOTE: multiply+sum, NOT einsum - an einsum here lowers to an emulated
-    # f64 dot_general on TPU which is ~12x slower than the fused VPU reduce.
+    # multiply+sum, not einsum: XLA fuses it with the weight chain
     return (d * w[:, :, None]).sum(axis=1)
+
+
+# From this many bodies on, the Pallas kernel beats XLA's fusion of
+# pairwise_accel on the GPU: the two tie at N=3584 and XLA's rate falls
+# 3.8x by N=4096, the kernel's does not (H100, PERF.md).
+PALLAS_MIN_BODIES = 4096
+
+
+def pairwise_accel_auto(pos: jax.Array, mu: jax.Array) -> jax.Array:
+    """:func:`pairwise_accel` through the faster kernel for the lowering
+    platform: the Pallas kernel on a GPU from ``PALLAS_MIN_BODIES`` bodies
+    on, XLA's fusion everywhere else.  The choice is made when the program
+    is lowered, so a CPU-committed trace on a GPU host takes the XLA path.
+    """
+    if pos.shape[0] < PALLAS_MIN_BODIES:
+        return pairwise_accel(pos, mu)
+    from . import pallas_nbody
+
+    return jax.lax.platform_dependent(
+        pos, mu, cuda=pallas_nbody.pairwise_accel, default=pairwise_accel
+    )
 
 
 def accel_at(pos: jax.Array, mu: jax.Array, at: jax.Array) -> jax.Array:

@@ -11,8 +11,7 @@ quadratically through a second-order multistep; see docs/ACCURACY.md).
 
 Intended for the ACCURACY configurations (N <= a few hundred): the dense
 (N, N) tf96 intermediates are fine at that scale and XLA fuses the whole
-thing onto the VPU.  The throughput path for N=4096 stays on the Pallas
-two-float kernels (ops/pallas_nbody.py).
+thing.  Large N stays on the native-f64 force (ops/nbody.py).
 """
 
 from __future__ import annotations

@@ -1,19 +1,14 @@
-"""Pallas TPU kernel: pairwise gravity in two-float ("df64") arithmetic.
+"""Pallas (Triton route) pairwise gravity in native f64.
 
-The XLA jnp path (:func:`..ops.nbody.pairwise_accel` in emulated f64) is
-bandwidth-bound: it materialises O(N^2) intermediates in HBM (~3.2 ms at
-N=4096 on v5e).  This kernel keeps the whole pair computation in VMEM and is
-compute-bound instead: positions stream in once, each row tile loops over
-column tiles, and everything in between lives on the VPU.
+Same semantics as :func:`.nbody.pairwise_accel` (zero softening,
+mu-weighted inverse cube), written as one GPU kernel: each program owns a
+power-of-two tile of receiver rows, loops over source tiles inside the
+block and keeps the three component sums in registers, so no (N, N)
+intermediate reaches device memory.  f64 ``rsqrt`` lowers to libdevice's
+``__nv_rsqrt`` on the Triton route.
 
-Numerics: all pair math runs in explicit two-float arithmetic (hi/lo f32
-pairs with error-free transforms from :mod:`.eft`) - the same ~2^-48 working
-precision as XLA's f64-on-TPU emulation, so results match the jnp f64 path to
-~1e-13 relative.  The O(N) row reduction uses a binary tree of two-float adds
-to keep the accumulation error at the same level.
-
-Layout: positions and accelerations as (3, N) component-major arrays (lane
-dimension = bodies, 128-aligned); mu as (1, N).
+Layout: positions as three (N,) component vectors, mu as (N,); N is padded
+to a multiple of both tile sizes, and padded sources are masked out.
 """
 
 from __future__ import annotations
@@ -22,1409 +17,77 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-import numpy as np
-
-from . import eft
-from .eft import TwoFloat
-
-try:  # pallas import is cheap; actual TPU lowering happens at trace time
-    from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
-
-    HAVE_PALLAS = True
-except Exception:  # pragma: no cover
-    HAVE_PALLAS = False
+from jax.experimental import pallas as pl
+from jax.experimental.pallas import triton as plgpu
 
 
-def _sqr_presplit(x: TwoFloat, xs) -> TwoFloat:
-    """x*x with a precomputed split of x.hi (shared with other products)."""
-    p = x.hi * x.hi
-    err = ((xs[0] * xs[0] - p) + 2.0 * (xs[0] * xs[1])) + xs[1] * xs[1]
-    err = err + 2.0 * (x.hi * x.lo)
-    return TwoFloat(*eft.quick_two_sum(p, err))
-
-
-def _dd_tree_sum(x: TwoFloat, axis: int = -1) -> TwoFloat:
-    """Binary-tree two-float reduction along `axis` (power-of-two length)."""
-    n = x.hi.shape[axis]
-    assert n & (n - 1) == 0, "tree sum requires power-of-two length"
-    hi, lo = x.hi, x.lo
-    while hi.shape[axis] > 1:
-        m = hi.shape[axis] // 2
-        a = TwoFloat(jax.lax.slice_in_dim(hi, 0, m, axis=axis),
-                     jax.lax.slice_in_dim(lo, 0, m, axis=axis))
-        b = TwoFloat(jax.lax.slice_in_dim(hi, m, 2 * m, axis=axis),
-                     jax.lax.slice_in_dim(lo, m, 2 * m, axis=axis))
-        s = eft.add_sloppy(a, b)
-        hi, lo = s.hi, s.lo
-    return TwoFloat(hi, lo)
-
-
-def _rsqrt_df(x: TwoFloat, refinements: int = 1) -> TwoFloat:
-    """Two-float rsqrt: f32 seed + Newton refinements in two-float arithmetic.
-
-    One refinement takes the 24-bit seed to ~47 bits, matching the working
-    precision.  The first iteration exploits the seed's zero low part:
-    y0^2 is a single errorless square and y0 * corr a float-by-TwoFloat
-    product (saves two full dd multiplies per pair).
-
-    The plain Newton step y0*(1.5 - s/2) with s = x*y0^2 lands at
-    y_true*(1 - 1.5 d^2) for seed error d — a SYSTEMATIC undershoot
-    (~2^-49 mean, the bias that integrates QUADRATICALLY through a
-    second-order multistep; it was the planets' km-scale century drift,
-    docs/ACCURACY.md).  Folding the next Taylor term of (1+(s-1))^-1/2,
-    +(3/8)(s-1)^2, into corr.lo costs 3 f32 ops and measures 22x less
-    bias (-2^-49.3 -> -2^-53.7) and 1.6x smaller max error — better on
-    both counts than a full second dd refinement (bias +2^-51.6).
-    """
-    y0 = jax.lax.rsqrt(x.hi)
-    # first refinement, specialised for lo = 0
-    y0sq = TwoFloat(*eft.two_sqr(y0))
-    xy2 = eft.mul(x, y0sq)
-    # s - 1: (s.hi - 1) is EXACT in f32 (Sterbenz, s within [0.5, 2]); s.lo
-    # is the same order as s - 1 (~2^-23) so it must fold in, but plain
-    # addition suffices — the correction only needs t to f32 accuracy
-    t = (xy2.hi - jnp.float32(1.0)) + xy2.lo
-    corr = eft.add_float(eft.mul_float(xy2, jnp.float32(-0.5)), jnp.float32(1.5))
-    corr = TwoFloat(corr.hi, corr.lo + jnp.float32(0.375) * t * t)
-    y = TwoFloat(*eft.two_prod(y0, corr.hi))
-    y = TwoFloat(*eft.quick_two_sum(y.hi, y.lo + y0 * corr.lo))
-    for _ in range(refinements - 1):
-        xy2 = eft.mul(x, eft.sqr(y))
-        corr = eft.add_float(eft.mul_float(xy2, jnp.float32(-0.5)), jnp.float32(1.5))
-        y = eft.mul(y, corr)
-    return y
-
-
-def _accel_kernel(
-    *refs,
-    n_bodies: int, tile_rows: int, tile_cols: int, ens: bool = False,
-    with_row0: bool = False,
+def _force_kernel(
+    x_ref, y_ref, z_ref, mu_ref, ax_ref, ay_ref, az_ref,
+    *, n: int, block_rows: int, block_cols: int,
 ):
-    """Pair tile layout: receiver rows in SUBLANES, source columns in LANES.
-
-    refs: ([row0_ref,] pos_hi, pos_lo, mu_hi, mu_lo, rows_hi, rows_lo,
-    out_hi, out_lo).  Inputs come in two layouts to avoid any in-kernel
-    relayout: lane-major sources (3, N) + (1, N) mu, and sublane-major
-    receiver rows (TR, 3).  The per-receiver reduction runs over lanes;
-    output blocks are (TR, 3).
-
-    With ``with_row0=True`` (the rectangular/row-sharded variant) the
-    first ref is a (1,) int32 SMEM scalar: the GLOBAL id of receiver
-    row 0 (the shard offset), so self-interaction masking works when the
-    rows are a slice of the sources.  The unsharded square kernels omit
-    it entirely — even an SMEM scalar read + add in the grid loop
-    measures ~4% on the headline scan, and a (NL, 1) id ARRAY costs ~8%.
-
-    With ``ens=True`` the blocks carry a leading ensemble dim of size 1
-    (grid axis 0 = ensemble member) — a fused grid instead of a vmapped
-    pallas_call, which costs ~25% at 16 x 4096 (measured).
-    """
-    if with_row0:
-        row0_ref = refs[0]
-        refs = refs[1:]
-    (pos_hi_ref, pos_lo_ref, mu_hi_ref, mu_lo_ref,
-     rows_hi_ref, rows_lo_ref, out_hi_ref, out_lo_ref) = refs
-    tr, tc = tile_rows, tile_cols
-    lead = (0,) if ens else ()
-    n_col_tiles = n_bodies // tc
-    i0 = jax.lax.mul(pl.program_id(1 if ens else 0), jnp.int32(tr))
-    if with_row0:
-        i0 = jax.lax.add(i0, row0_ref[0])
-    row_ids = jax.lax.add(jax.lax.broadcasted_iota(jnp.int32, (tr, 1), 0), i0)
-
-    rows_hi = rows_hi_ref[(*lead, slice(None), slice(None))]  # (TR, 3)
-    rows_lo = rows_lo_ref[(*lead, slice(None), slice(None))]
+    i0 = pl.program_id(0) * block_rows
+    rows = i0 + jnp.arange(block_rows, dtype=jnp.int32)
+    xi = x_ref[pl.ds(i0, block_rows)][:, None]
+    yi = y_ref[pl.ds(i0, block_rows)][:, None]
+    zi = z_ref[pl.ds(i0, block_rows)][:, None]
 
     def col_tile(k, acc):
-        c0 = jax.lax.mul(k, jnp.int32(tc))
-        col_ids = jax.lax.add(jax.lax.broadcasted_iota(jnp.int32, (1, tc), 1), c0)
-        self_mask = row_ids == col_ids  # (TR, TC)
-
-        # d_c = p_j - p_i in two-float, per component: (TR, TC)
-        d = []
-        for c in range(3):
-            pj = TwoFloat(
-                pos_hi_ref[(*lead, c, pl.ds(c0, tc))][None, :],   # (1, TC) lanes
-                pos_lo_ref[(*lead, c, pl.ds(c0, tc))][None, :],
-            )
-            pi = TwoFloat(rows_hi[:, c][:, None], rows_lo[:, c][:, None])  # (TR, 1)
-            d.append(eft.sub(pj, pi))
-
-        d_splits = [eft.split(dc.hi) for dc in d]
-        r2 = eft.add(
-            eft.add(_sqr_presplit(d[0], d_splits[0]), _sqr_presplit(d[1], d_splits[1])),
-            _sqr_presplit(d[2], d_splits[2]),
-        )
-        one = jnp.ones_like(r2.hi)
-        r2 = eft.where(self_mask, TwoFloat(one, jnp.zeros_like(one)), r2)
-
-        mu = TwoFloat(mu_hi_ref[0, pl.ds(c0, tc)][None, :],
-                      mu_lo_ref[0, pl.ds(c0, tc)][None, :])
-        u = _rsqrt_df(r2)                        # 1/r
-        # w = (u^2 * mu) * u, NOT (u^2 * u) * mu: u^3 alone spans down to
-        # ~5e-30 km^-3 for the most distant solar-system pairs and the dd
-        # correction terms of its final mul land f32-SUBNORMAL and flush
-        # (measured: the Sun->Pluto term silently degraded to 1.2e-9
-        # relative).  Folding mu in FIRST keeps every intermediate normal
-        # for any physical geometry at zero extra cost; w.lo can only
-        # underflow when the term itself is negligible (w.hi < 2e-31).
-        w = eft.mul(eft.mul(eft.sqr(u), mu), u)
-        zero = jnp.zeros_like(w.hi)
-        w = eft.where(self_mask, TwoFloat(zero, zero), w)
-        w_split = eft.split(w.hi)
-
-        out = []
-        for c in range(3):
-            term = eft.mul_presplit(w, w_split, d[c], d_splits[c])  # (TR, TC)
-            s = _dd_tree_sum(term, axis=1)       # (TR, 1)
-            out.append(eft.add(acc[c], s))
-        return tuple(out)
-
-    acc0 = tuple(
-        TwoFloat(jnp.zeros((tr, 1), jnp.float32), jnp.zeros((tr, 1), jnp.float32))
-        for _ in range(3)
-    )
-    acc = jax.lax.fori_loop(jnp.int32(0), jnp.int32(n_col_tiles), col_tile, acc0)
-    for c in range(3):
-        out_hi_ref[(*lead, slice(None), slice(c, c + 1))] = acc[c].hi
-        out_lo_ref[(*lead, slice(None), slice(c, c + 1))] = acc[c].lo
-
-
-@partial(jax.jit, static_argnames=("tile_rows", "tile_cols", "interpret"))
-def pairwise_accel_df64_ensemble(
-    pos_hi, pos_lo, mu_hi, mu_lo,
-    tile_rows: int = 256, tile_cols: int = 1024, interpret: bool = False,
-):
-    """Ensemble pairwise accelerations: one fused (E, N/TR) grid.
-
-    pos_hi/pos_lo: (E, 3, N) f32 split positions; mu shared (1, N).
-    Returns (acc_hi, acc_lo) of shape (E, N, 3).
-    """
-    e, _, n = pos_hi.shape
-    tile_cols = min(tile_cols, n)
-    tile_rows = min(tile_rows, n)
-    assert n % tile_rows == 0 and n % tile_cols == 0
-
-    rows_hi = jnp.swapaxes(pos_hi, 1, 2)  # (E, N, 3) sublane-major rows
-    rows_lo = jnp.swapaxes(pos_lo, 1, 2)
-
-    kernel = partial(
-        _accel_kernel, n_bodies=n, tile_rows=tile_rows, tile_cols=tile_cols,
-        ens=True,
-    )
-    grid = (e, n // tile_rows)
-    with jax.enable_x64(False):
-        return pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=[
-                pl.BlockSpec((1, 3, n), lambda e, i: (e, 0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, 3, n), lambda e, i: (e, 0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, n), lambda e, i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, n), lambda e, i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, tile_rows, 3), lambda e, i: (e, i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, tile_rows, 3), lambda e, i: (e, i, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((1, tile_rows, 3), lambda e, i: (e, i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, tile_rows, 3), lambda e, i: (e, i, 0), memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((e, n, 3), jnp.float32),
-                jax.ShapeDtypeStruct((e, n, 3), jnp.float32),
-            ],
-            interpret=interpret,
-        )(pos_hi, pos_lo, mu_hi, mu_lo, rows_hi, rows_lo)
-
-
-def pairwise_accel_ensemble(pos, mu_hi, mu_lo, interpret: bool = False, **tiles):
-    """Drop-in ensemble O(N^2) acceleration: f64 (E, N, 3) in/out."""
-    ph = jnp.swapaxes(pos, 1, 2).astype(jnp.float32)            # (E, 3, N)
-    plo = (jnp.swapaxes(pos, 1, 2) - ph.astype(jnp.float64)).astype(jnp.float32)
-    ah, al = pairwise_accel_df64_ensemble(
-        ph, plo, mu_hi, mu_lo, interpret=interpret, **tiles
-    )
-    return ah.astype(jnp.float64) + al.astype(jnp.float64)      # (E, N, 3)
-
-
-@partial(jax.jit, static_argnames=("tile_rows", "tile_cols", "interpret"))
-def pairwise_accel_df64(
-    pos_hi, pos_lo, mu_hi, mu_lo,
-    tile_rows: int = 256, tile_cols: int = 1024, interpret: bool = False,
-):
-    """Pairwise accelerations in two-float precision.
-
-    pos_hi/pos_lo: (3, N) f32 component-major split positions.
-    mu_hi/mu_lo:   (1, N) f32 split gravitational parameters.
-    Returns (acc_hi, acc_lo) of shape (N, 3).
-    """
-    n = pos_hi.shape[1]
-    tile_cols = min(tile_cols, n)
-    tile_rows = min(tile_rows, n)
-    assert n % tile_rows == 0 and n % tile_cols == 0
-
-    rows_hi = pos_hi.T  # (N, 3) sublane-major receiver view
-    rows_lo = pos_lo.T
-    return _pallas_accel_rect(
-        pos_hi, pos_lo, mu_hi, mu_lo, rows_hi, rows_lo, None,
-        tile_rows=tile_rows, tile_cols=tile_cols, interpret=interpret,
-    )
-
-
-@partial(jax.jit, static_argnames=("tile_rows", "tile_cols", "interpret"))
-def pairwise_accel_df64_rows(
-    pos_hi, pos_lo, mu_hi, mu_lo, rows_hi, rows_lo, row0,
-    tile_rows: int = 256, tile_cols: int = 1024, interpret: bool = False,
-):
-    """Rectangular two-float pair kernel: NL receiver rows vs N sources.
-
-    The production kernel for the row-decomposed (model-parallel) N-axis
-    sharding (SURVEY.md 2.6): each shard all-gathers the (hi, lo) source
-    positions over ICI and evaluates only its local receiver rows here.
-
-    pos_hi/pos_lo: (3, N) f32 split SOURCE positions (all bodies).
-    mu_hi/mu_lo:   (1, N) f32 split gravitational parameters.
-    rows_hi/rows_lo: (NL, 3) f32 split RECEIVER positions (local rows).
-    row0:          (1,) int32 global id of receiver row 0 (shard offset).
-    Returns (acc_hi, acc_lo) of shape (NL, 3).  Bitwise-identical to the
-    matching rows of :func:`pairwise_accel_df64` for equal ``tile_cols``
-    (the column accumulation order is the only order-sensitive part).
-    """
-    nl = rows_hi.shape[0]
-    tile_rows = min(tile_rows, nl)
-    return _pallas_accel_rect(
-        pos_hi, pos_lo, mu_hi, mu_lo, rows_hi, rows_lo,
-        row0.astype(jnp.int32),
-        tile_rows=tile_rows, tile_cols=tile_cols, interpret=interpret,
-    )
-
-
-def _pallas_accel_rect(
-    pos_hi, pos_lo, mu_hi, mu_lo, rows_hi, rows_lo, row0,
-    *, tile_rows: int, tile_cols: int, interpret: bool,
-):
-    n = pos_hi.shape[1]
-    nl = rows_hi.shape[0]
-    tile_cols = min(tile_cols, n)
-    tile_rows = min(tile_rows, nl)
-    assert nl % tile_rows == 0 and n % tile_cols == 0
-
-    with_row0 = row0 is not None
-    kernel = partial(
-        _accel_kernel, n_bodies=n, tile_rows=tile_rows, tile_cols=tile_cols,
-        with_row0=with_row0,
-    )
-    grid = (nl // tile_rows,)
-    row0_spec = [pl.BlockSpec(memory_space=pltpu.SMEM)] if with_row0 else []
-    row0_arg = (row0,) if with_row0 else ()
-    # Mosaic cannot lower the i64 grid/index scalars that jax_enable_x64
-    # injects; trace the kernel with x64 disabled (all operands are f32).
-    with jax.enable_x64(False):
-        return pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=row0_spec + [
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((nl, 3), jnp.float32),
-                jax.ShapeDtypeStruct((nl, 3), jnp.float32),
-            ],
-            interpret=interpret,
-        )(*row0_arg, pos_hi, pos_lo, mu_hi, mu_lo, rows_hi, rows_lo)
-
-
-def split_f64(x, transpose: bool = False):
-    """Split an f64 array into exact (hi, lo) f32 parts (device-side, O(N))."""
-    if transpose:
-        x = x.T
-    hi = x.astype(jnp.float32)
-    lo = (x - hi.astype(jnp.float64)).astype(jnp.float32)
-    return hi, lo
-
-
-def combine_f64(hi, lo, transpose: bool = False):
-    out = hi.astype(jnp.float64) + lo.astype(jnp.float64)
-    return out.T if transpose else out
-
-
-def pairwise_accel(pos, mu_hi, mu_lo, interpret: bool = False, **tiles):
-    """Drop-in O(N^2) acceleration: f64 (N, 3) in, f64 (N, 3) out.
-
-    `mu_hi`/`mu_lo` are the pre-split (1, N) f32 gravitational parameters
-    (split once at setup with :func:`split_f64`).
-    """
-    ph, plo = split_f64(pos, transpose=True)      # (3, N)
-    ah, al = pairwise_accel_df64(ph, plo, mu_hi, mu_lo, interpret=interpret, **tiles)
-    return combine_f64(ah, al)                    # (N, 3)
-
-
-# ---------------------------------------------------------------------------
-# Three-limb variant: error-free position differences
-# ---------------------------------------------------------------------------
-#
-# With two-limb inputs the pair displacement d = p_j - p_i inherits the
-# POSITION rounding (~|p| 2^-48), which for close pairs (Phobos-Mars:
-# |d|/|p| ~ 5e-5) is a ~1e-10 RELATIVE error on d - the dominant noise in
-# century-scale moon tracks.  Taking a third limb and differencing with
-# error-free transforms makes d accurate to ~2^-48 of |d| itself.
-
-
-def _accel_kernel3(
-    *refs,
-    n_bodies: int, tile_rows: int, tile_cols: int, with_row0: bool = False,
-):
-    if with_row0:
-        row0_ref = refs[0]
-        refs = refs[1:]
-    (p0_ref, p1_ref, p2_ref, mu_hi_ref, mu_lo_ref,
-     r0_ref, r1_ref, r2l_ref, out_hi_ref, out_lo_ref) = refs
-    tr, tc = tile_rows, tile_cols
-    n_col_tiles = n_bodies // tc
-    # optional (1,) i32 SMEM global offset of row 0 (see _accel_kernel:
-    # omitted entirely on the unsharded square path — the read costs ~4%)
-    i0 = jax.lax.mul(pl.program_id(0), jnp.int32(tr))
-    if with_row0:
-        i0 = jax.lax.add(i0, row0_ref[0])
-    row_ids = jax.lax.add(jax.lax.broadcasted_iota(jnp.int32, (tr, 1), 0), i0)
-
-    rows0 = r0_ref[:, :]  # (TR, 3) limb arrays, rows in sublanes
-    rows1 = r1_ref[:, :]
-    rows2 = r2l_ref[:, :]
-
-    def col_tile(k, acc):
-        c0 = jax.lax.mul(k, jnp.int32(tc))
-        col_ids = jax.lax.add(jax.lax.broadcasted_iota(jnp.int32, (1, tc), 1), c0)
-        self_mask = row_ids == col_ids
-
-        d = []
-        for c in range(3):
-            pj0 = p0_ref[c, pl.ds(c0, tc)][None, :]
-            pj1 = p1_ref[c, pl.ds(c0, tc)][None, :]
-            pj2 = p2_ref[c, pl.ds(c0, tc)][None, :]
-            pi0 = rows0[:, c][:, None]
-            pi1 = rows1[:, c][:, None]
-            pi2 = rows2[:, c][:, None]
-            s0, e0 = eft.two_sum(pj0, -pi0)
-            s1, e1 = eft.two_sum(pj1, -pi1)
-            s2 = pj2 - pi2
-            dd = eft.add_sloppy(TwoFloat(s0, e0), TwoFloat(s1, e1))
-            d.append(eft.add_float(dd, s2))
-
-        # share the Dekker splits of d.hi between the r^2 squares and the
-        # final w*d products (same restructuring as the two-float kernel);
-        # the three squares are non-negative, so sloppy adds lose nothing
-        d_splits = [eft.split(dc.hi) for dc in d]
-        r2 = eft.add_sloppy(
-            eft.add_sloppy(
-                _sqr_presplit(d[0], d_splits[0]), _sqr_presplit(d[1], d_splits[1])
-            ),
-            _sqr_presplit(d[2], d_splits[2]),
-        )
-        one = jnp.ones_like(r2.hi)
-        r2 = eft.where(self_mask, TwoFloat(one, jnp.zeros_like(one)), r2)
-
-        mu = TwoFloat(mu_hi_ref[0, pl.ds(c0, tc)][None, :],
-                      mu_lo_ref[0, pl.ds(c0, tc)][None, :])
-        u = _rsqrt_df(r2)                        # 1/r
-        # w = (u^2 * mu) * u, NOT (u^2 * u) * mu: u^3 alone spans down to
-        # ~5e-30 km^-3 for the most distant solar-system pairs and the dd
-        # correction terms of its final mul land f32-SUBNORMAL and flush
-        # (measured: the Sun->Pluto term silently degraded to 1.2e-9
-        # relative).  Folding mu in FIRST keeps every intermediate normal
-        # for any physical geometry at zero extra cost; w.lo can only
-        # underflow when the term itself is negligible (w.hi < 2e-31).
-        w = eft.mul(eft.mul(eft.sqr(u), mu), u)
-        zero = jnp.zeros_like(w.hi)
-        w = eft.where(self_mask, TwoFloat(zero, zero), w)
-        w_split = eft.split(w.hi)
-
-        out = []
-        for c in range(3):
-            term = eft.mul_presplit(w, w_split, d[c], d_splits[c])
-            s = _dd_tree_sum(term, axis=1)
-            out.append(eft.add(acc[c], s))
-        return tuple(out)
-
-    acc0 = tuple(
-        TwoFloat(jnp.zeros((tr, 1), jnp.float32), jnp.zeros((tr, 1), jnp.float32))
-        for _ in range(3)
-    )
-    acc = jax.lax.fori_loop(jnp.int32(0), jnp.int32(n_col_tiles), col_tile, acc0)
-    for c in range(3):
-        out_hi_ref[:, c : c + 1] = acc[c].hi
-        out_lo_ref[:, c : c + 1] = acc[c].lo
-
-
-def pairwise_accel_limbs(l0, l1, l2, mu_hi, mu_lo, **kw):
-    """O(N^2) acceleration from 3-limb f32 positions, combined to f64."""
-    ah, al = pairwise_accel_limbs_pair(l0, l1, l2, mu_hi, mu_lo, **kw)
-    return combine_f64(ah, al)
-
-
-@partial(jax.jit, static_argnames=("tile_rows", "tile_cols", "interpret"))
-def pairwise_accel_limbs_pair(
-    l0, l1, l2, mu_hi, mu_lo,
-    tile_rows: int = 128, tile_cols: int = 1024, interpret: bool = False,
-):
-    """O(N^2) acceleration from 3-limb f32 positions.
-
-    Default tile is (128, 1024): the 3-limb pipeline keeps ~50% more live
-    (TR, TC) temps than the two-float kernel, so (256, 1024) exceeds the
-    16 MB VMEM scoped-allocation limit at N=4096 (measured: 17.96M);
-    halving the rows instead of the columns keeps the wide lane dimension
-    and measures ~9% faster than (256, 512) at N=4096 on v5e.
-
-    l0/l1/l2: (N, 3) f32 limb arrays (leading limbs of an f32 expansion,
-    e.g. :func:`..ops.expansion.hi_lo` plus the third limb).
-    mu_hi/mu_lo: (1, N) split gravitational parameters.
-    Returns the raw (hi, lo) f32 pair of (N, 3) accelerations - the fused
-    ELM2 update (ops/pallas_elm2.py) consumes the pair directly, skipping
-    the emulated-f64 combine/re-split round trip.
-    """
-    n = l0.shape[0]
-    lane = [x.T for x in (l0, l1, l2)]  # (3, N) lane-major views
-    return _pallas_accel3_rect(
-        lane[0], lane[1], lane[2], mu_hi, mu_lo, l0, l1, l2, None,
-        tile_rows=tile_rows, tile_cols=tile_cols, interpret=interpret,
-    )
-
-
-@partial(jax.jit, static_argnames=("tile_rows", "tile_cols", "interpret"))
-def pairwise_accel_limbs_pair_rows(
-    p0, p1, p2, mu_hi, mu_lo, r0, r1, r2, row0,
-    tile_rows: int = 128, tile_cols: int = 1024, interpret: bool = False,
-):
-    """Rectangular 3-limb pair kernel: NL receiver rows vs N sources.
-
-    The parity-engine force for the row-decomposed N-axis sharding; see
-    :func:`pairwise_accel_df64_rows` for the sharding contract.
-
-    p0/p1/p2: (3, N) f32 lane-major SOURCE limb arrays (all bodies).
-    mu_hi/mu_lo: (1, N) split gravitational parameters.
-    r0/r1/r2: (NL, 3) f32 RECEIVER limb arrays (local rows).
-    row0:     (1,) int32 global id of receiver row 0 (shard offset).
-    Returns (acc_hi, acc_lo) of shape (NL, 3), bitwise-identical to the
-    matching rows of :func:`pairwise_accel_limbs_pair` for equal
-    ``tile_cols``.
-    """
-    nl = r0.shape[0]
-    tile_rows = min(tile_rows, nl)
-    return _pallas_accel3_rect(
-        p0, p1, p2, mu_hi, mu_lo, r0, r1, r2, row0.astype(jnp.int32),
-        tile_rows=tile_rows, tile_cols=tile_cols, interpret=interpret,
-    )
-
-
-def _pallas_accel3_rect(
-    p0, p1, p2, mu_hi, mu_lo, r0, r1, r2, row0,
-    *, tile_rows: int, tile_cols: int, interpret: bool,
-):
-    n = p0.shape[1]
-    nl = r0.shape[0]
-    tile_cols = min(tile_cols, n)
-    tile_rows = min(tile_rows, nl)
-    assert nl % tile_rows == 0 and n % tile_cols == 0
-
-    with_row0 = row0 is not None
-    kernel = partial(
-        _accel_kernel3, n_bodies=n, tile_rows=tile_rows, tile_cols=tile_cols,
-        with_row0=with_row0,
-    )
-    grid = (nl // tile_rows,)
-    row0_spec = [pl.BlockSpec(memory_space=pltpu.SMEM)] if with_row0 else []
-    row0_arg = (row0,) if with_row0 else ()
-    with jax.enable_x64(False):
-        ah, al = pl.pallas_call(
-            kernel,
-            grid=grid,
-            in_specs=row0_spec + [
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((nl, 3), jnp.float32),
-                jax.ShapeDtypeStruct((nl, 3), jnp.float32),
-            ],
-            interpret=interpret,
-        )(*row0_arg, p0, p1, p2, mu_hi, mu_lo, r0, r1, r2)
-    return ah, al
-
-
-# ---------------------------------------------------------------------------
-# Symmetric (Newton's-third-law) two-float kernel
-# ---------------------------------------------------------------------------
-#
-# The reference computes each pair ONCE and scatters the force to both
-# bodies (particular AccelerationPaired, used at
-# ephemeris/src/propagators/nbody.rs:29).  The row-sweep kernels above
-# instead evaluate every (i, j) AND (j, i) because a tile-local scatter is
-# race-free that way.  At N=4096 the two-float pipeline sits at the VPU
-# f32 roofline, so the remaining ~1.5x is algorithmic: a (T, T) upper-
-# triangle grid where each pair tile is evaluated once - the expensive
-# rsqrt chain is shared - and accumulated to BOTH receiver sets.  TPU
-# Pallas grids execute sequentially on the core, so two whole-array
-# accumulator outputs with constant index maps stay resident in VMEM for
-# the entire grid and read-modify-write accumulation is race-free.  The
-# column-side accumulator lives lane-major (3, N) so its (1, T) partial
-# sums write without a sublane transpose.
-
-
-def _accel_kernel_sym(
-    pos_hi_ref, pos_lo_ref,      # (3, N) lane-major source positions
-    mu_hi_ref, mu_lo_ref,        # (1, N) lane-major mu
-    rows_hi_ref, rows_lo_ref,    # (N, 3) sublane-major receiver positions
-    mu_r_hi_ref, mu_r_lo_ref,    # (N, 1) sublane-major mu
-    row_hi_ref, row_lo_ref,      # out (tile, 3) blocks: row-side accumulator
-    col_hi_ref, col_lo_ref,      # out (3, N): column-side accumulator
-    *, n_bodies: int, tile: int,
-):
-    """Row-tile grid; inner fori over column tiles j >= i.
-
-    The row-side accumulator lives in registers across the inner loop and
-    is written once per grid step; only the column-side scatter
-    read-modify-writes its resident (3, N) block.  The diagonal tile is
-    handled branch-free: its column-side contribution is masked to zero
-    (within-tile pairs are fully counted by the row-side sum).
-    """
-    t = tile
-    i = pl.program_id(0)
-    i0 = jax.lax.mul(i, jnp.int32(t))
-    n_tiles = n_bodies // t
-
-    @pl.when(i == 0)
-    def _init():
-        col_hi_ref[:, :] = jnp.zeros_like(col_hi_ref)
-        col_lo_ref[:, :] = jnp.zeros_like(col_lo_ref)
-
-    row_ids = jax.lax.add(jax.lax.broadcasted_iota(jnp.int32, (t, 1), 0), i0)
-    rows_hi = rows_hi_ref[pl.ds(i0, t), :]   # (T, 3)
-    rows_lo = rows_lo_ref[pl.ds(i0, t), :]
-    mu_r = TwoFloat(mu_r_hi_ref[pl.ds(i0, t), :], mu_r_lo_ref[pl.ds(i0, t), :])
-    mu_r_split = eft.split(mu_r.hi)
-
-    def col_tile(j, acc):
-        c0 = jax.lax.mul(j, jnp.int32(t))
-        col_ids = jax.lax.add(jax.lax.broadcasted_iota(jnp.int32, (1, t), 1), c0)
-        self_mask = row_ids == col_ids
-
-        d = []
-        for c in range(3):
-            pj = TwoFloat(
-                pos_hi_ref[c, pl.ds(c0, t)][None, :],
-                pos_lo_ref[c, pl.ds(c0, t)][None, :],
-            )
-            pi = TwoFloat(rows_hi[:, c][:, None], rows_lo[:, c][:, None])
-            d.append(eft.sub(pj, pi))
-
-        d_splits = [eft.split(dc.hi) for dc in d]
-        r2 = eft.add(
-            eft.add(_sqr_presplit(d[0], d_splits[0]), _sqr_presplit(d[1], d_splits[1])),
-            _sqr_presplit(d[2], d_splits[2]),
-        )
-        one = jnp.ones_like(r2.hi)
-        r2 = eft.where(self_mask, TwoFloat(one, jnp.zeros_like(one)), r2)
-
-        u = _rsqrt_df(r2)
-        # u^2 with mu folded in BEFORE the final u multiply — see the row
-        # kernels: the u^3 intermediate's dd corrections flush subnormal
-        # for the most distant pairs.  Costs one extra dd mul vs the
-        # shared-u^3 form (this kernel is a documented negative result).
-        u2 = eft.sqr(u)
-        zero = jnp.zeros_like(u2.hi)
-        u2 = eft.where(self_mask, TwoFloat(zero, zero), u2)
-        u2_split = eft.split(u2.hi)
-
-        # row receivers i: a_i += sum_cols mu_j * w * d
-        mu_c = TwoFloat(mu_hi_ref[0, pl.ds(c0, t)][None, :],
-                        mu_lo_ref[0, pl.ds(c0, t)][None, :])
-        mu_c_split = eft.split(mu_c.hi)
-        wr = eft.mul(eft.mul_presplit(u2, u2_split, mu_c, mu_c_split), u)
-        wr_split = eft.split(wr.hi)
-        acc_new = []
-        for c in range(3):
-            term = eft.mul_presplit(wr, wr_split, d[c], d_splits[c])
-            s = _dd_tree_sum(term, axis=1)       # (T, 1)
-            acc_new.append(eft.add_sloppy(acc[c], s))
-
-        # column receivers j: a_j -= sum_rows mu_i * w * d; masked out on
-        # the diagonal tile
-        cmask = (j > i).astype(jnp.float32)
-        wc = eft.mul(eft.mul_presplit(u2, u2_split, mu_r, mu_r_split), u)
-        wc_split = eft.split(wc.hi)
-        for c in range(3):
-            term = eft.mul_presplit(wc, wc_split, d[c], d_splits[c])
-            s = _dd_tree_sum(term, axis=0)       # (1, T)
-            cur = TwoFloat(col_hi_ref[c, pl.ds(c0, t)][None, :],
-                           col_lo_ref[c, pl.ds(c0, t)][None, :])
-            acc_c = eft.add_sloppy(cur, TwoFloat(-s.hi * cmask, -s.lo * cmask))
-            col_hi_ref[c, pl.ds(c0, t)] = acc_c.hi[0]
-            col_lo_ref[c, pl.ds(c0, t)] = acc_c.lo[0]
-        return tuple(acc_new)
-
-    acc0 = tuple(
-        TwoFloat(jnp.zeros((t, 1), jnp.float32), jnp.zeros((t, 1), jnp.float32))
-        for _ in range(3)
-    )
-    acc = jax.lax.fori_loop(i, jnp.int32(n_tiles), col_tile, acc0)
-    for c in range(3):
-        row_hi_ref[:, c : c + 1] = acc[c].hi
-        row_lo_ref[:, c : c + 1] = acc[c].lo
-
-
-@partial(jax.jit, static_argnames=("tile", "interpret"))
-def pairwise_accel_df64_sym(
-    pos_hi, pos_lo, mu_hi, mu_lo, tile: int = 256, interpret: bool = False
-):
-    """Symmetric pairwise accelerations in two-float precision.
-
-    pos_hi/pos_lo: (3, N) f32 component-major split positions.
-    mu_hi/mu_lo: (1, N) f32 split gravitational parameters.
-    Returns (acc_hi, acc_lo) of shape (N, 3).
-    """
-    n = pos_hi.shape[1]
-    tile = min(tile, n)
-    assert n % tile == 0
-    nt = n // tile
-
-    rows_hi = pos_hi.T
-    rows_lo = pos_lo.T
-    mu_r_hi = mu_hi.reshape(-1, 1)
-    mu_r_lo = mu_lo.reshape(-1, 1)
-
-    kernel = partial(_accel_kernel_sym, n_bodies=n, tile=tile)
-    with jax.enable_x64(False):
-        row_hi, row_lo, col_hi, col_lo = pl.pallas_call(
-            kernel,
-            grid=(nt,),
-            in_specs=[
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((n, 3), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((n, 3), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((n, 1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((n, 1), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=[
-                pl.BlockSpec((tile, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            ],
-            out_shape=[
-                jax.ShapeDtypeStruct((n, 3), jnp.float32),
-                jax.ShapeDtypeStruct((n, 3), jnp.float32),
-                jax.ShapeDtypeStruct((3, n), jnp.float32),
-                jax.ShapeDtypeStruct((3, n), jnp.float32),
-            ],
-            interpret=interpret,
-        )(pos_hi, pos_lo, mu_hi, mu_lo, rows_hi, rows_lo, mu_r_hi, mu_r_lo)
-    # combine the two receiver-side partial sums (cheap O(N) XLA pass)
-    row = TwoFloat(row_hi, row_lo)
-    col = TwoFloat(col_hi.T, col_lo.T)
-    s = eft.add_sloppy(row, col)
-    return s.hi, s.lo
-
-
-def pairwise_accel_sym(pos, mu_hi, mu_lo, interpret: bool = False, **kw):
-    """Drop-in symmetric O(N^2/2) acceleration: f64 (N, 3) in/out."""
-    ph, plo = split_f64(pos, transpose=True)
-    ah, al = pairwise_accel_df64_sym(ph, plo, mu_hi, mu_lo, interpret=interpret, **kw)
-    return combine_f64(ah, al)
-
-
-# ---------------------------------------------------------------------------
-# Mixed-precision intermediate mode: error-free near-field differences +
-# f32 weight chain (BEYOND the reference)
-# ---------------------------------------------------------------------------
-#
-# The fast f32 mode's accuracy killer is NOT the f32 weight chain — it is
-# the pair difference d = p_j - p_i: rounding positions to f32 costs
-# |p| * 2^-24 absolute, which for close pairs (|d|/|p| ~ 5e-5,
-# Phobos-Mars) is a ~1e-3 RELATIVE error on d and hence on the dominant
-# force term.  This kernel keeps the (hi, lo) split positions and forms d
-# with one error-free two_sum per component (the compensated difference
-# rounds to f32 at ~2^-24 of |d| itself, however close the pair), then
-# runs r^2 / rsqrt / mu / accumulation in plain f32: ~60 flops/pair vs
-# the two-float kernel's ~310 and the f32 kernel's ~22.  Uniform ~1e-6
-# relative force error for EVERY pair geometry — the middle rung of the
-# precision ladder (f32 ~1e-3 close-pair worst case, df64 ~1e-13).
-
-
-def _accel_kernel_mixed(
-    pos_hi_ref, pos_lo_ref, mu_ref,
-    rows_hi_ref, rows_lo_ref,
-    out_ref,
-    *, n_bodies: int, tile_rows: int, tile_cols: int,
-):
-    tr, tc = tile_rows, tile_cols
-    n_col_tiles = n_bodies // tc
-    i0 = jax.lax.mul(pl.program_id(0), jnp.int32(tr))
-    row_ids = jax.lax.add(jax.lax.broadcasted_iota(jnp.int32, (tr, 1), 0), i0)
-    rows_hi = rows_hi_ref[:, :]  # (TR, 3)
-    rows_lo = rows_lo_ref[:, :]
-
-    def col_tile(k, acc):
-        c0 = jax.lax.mul(k, jnp.int32(tc))
-        col_ids = jax.lax.add(jax.lax.broadcasted_iota(jnp.int32, (1, tc), 1), c0)
-        self_mask = row_ids == col_ids
-
-        d = []
-        for c in range(3):
-            pj_hi = pos_hi_ref[c, pl.ds(c0, tc)][None, :]
-            pj_lo = pos_lo_ref[c, pl.ds(c0, tc)][None, :]
-            pi_hi = rows_hi[:, c][:, None]
-            pi_lo = rows_lo[:, c][:, None]
-            # error-free difference of the hi words + low-word correction:
-            # d is the f32 rounding of the EXACT (hi+lo) difference
-            s, e = eft.two_sum(pj_hi, -pi_hi)
-            d.append(s + (e + (pj_lo - pi_lo)))
-        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        r2 = jnp.where(self_mask, jnp.float32(1.0), r2)
-        u = jax.lax.rsqrt(r2)
-        u = u * (jnp.float32(1.5) - jnp.float32(0.5) * r2 * u * u)
-        w = mu_ref[0, pl.ds(c0, tc)][None, :] * (u * u * u)
-        w = jnp.where(self_mask, jnp.float32(0.0), w)
-        return tuple(
-            acc[c] + jnp.sum(w * d[c], axis=1, keepdims=True) for c in range(3)
+        c0 = k * block_cols
+        cols = c0 + jnp.arange(block_cols, dtype=jnp.int32)
+        dx = x_ref[pl.ds(c0, block_cols)][None, :] - xi
+        dy = y_ref[pl.ds(c0, block_cols)][None, :] - yi
+        dz = z_ref[pl.ds(c0, block_cols)][None, :] - zi
+        r2 = dx * dx + dy * dy + dz * dz
+        keep = (cols[None, :] < n) & (cols[None, :] != rows[:, None])
+        inv_r = jax.lax.rsqrt(jnp.where(keep, r2, 1.0))
+        mu_j = mu_ref[pl.ds(c0, block_cols)][None, :]
+        w = jnp.where(keep, mu_j * (inv_r * inv_r * inv_r), 0.0)
+        return (
+            acc[0] + jnp.sum(w * dx, axis=1),
+            acc[1] + jnp.sum(w * dy, axis=1),
+            acc[2] + jnp.sum(w * dz, axis=1),
         )
 
-    acc0 = tuple(jnp.zeros((tr, 1), jnp.float32) for _ in range(3))
-    acc = jax.lax.fori_loop(jnp.int32(0), jnp.int32(n_col_tiles), col_tile, acc0)
-    for c in range(3):
-        out_ref[:, c : c + 1] = acc[c]
+    zero = jnp.zeros((block_rows,), x_ref.dtype)
+    n_tiles = x_ref.shape[0] // block_cols
+    ax, ay, az = jax.lax.fori_loop(0, n_tiles, col_tile, (zero, zero, zero))
+    ax_ref[...] = ax
+    ay_ref[...] = ay
+    az_ref[...] = az
 
 
-@partial(jax.jit, static_argnames=("tile_rows", "tile_cols", "interpret"))
-def pairwise_accel_mixed(
-    pos_hi, pos_lo, mu,
-    tile_rows: int = 256, tile_cols: int = 2048, interpret: bool = False,
+@partial(
+    jax.jit,
+    static_argnames=("block_rows", "block_cols", "num_warps", "interpret"),
+)
+def pairwise_accel(
+    pos, mu, block_rows: int = 16, block_cols: int = 256, num_warps: int = 4,
+    interpret: bool = False,
 ):
-    """Mixed-precision O(N^2) acceleration: split (hi, lo) f32 positions in,
-    f32 (N, 3) accelerations out (~1e-6 relative force error for every
-    pair geometry — see the section comment).
+    """(N, 3) f64 positions and (N,) mu in, (N, 3) f64 accelerations out.
 
-    pos_hi/pos_lo: (3, N) f32 split positions; mu: (1, N) f32.
+    ``block_rows`` and ``block_cols`` must be powers of two (the Triton
+    route's block rule); the defaults were the fastest of a sweep on an
+    H100 at N=4096, where the kernel is used (PERF.md).  ``interpret=True`` runs the kernel
+    on the CPU.
     """
-    n = pos_hi.shape[1]
-    tile_cols = min(tile_cols, n)
-    tile_rows = min(tile_rows, n)
-    assert n % tile_rows == 0 and n % tile_cols == 0
-
-    kernel = partial(
-        _accel_kernel_mixed, n_bodies=n, tile_rows=tile_rows, tile_cols=tile_cols
-    )
-    with jax.enable_x64(False):
-        return pl.pallas_call(
-            kernel,
-            grid=(n // tile_rows,),
-            in_specs=[
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            out_shape=jax.ShapeDtypeStruct((n, 3), jnp.float32),
-            interpret=interpret,
-        )(pos_hi, pos_lo, mu, pos_hi.T, pos_lo.T)
-
-
-# ---------------------------------------------------------------------------
-# Single-precision fast mode (visualization-grade, BEYOND the reference)
-# ---------------------------------------------------------------------------
-#
-# Plain f32 pair math: ~22 flops/pair instead of the two-float path's ~310,
-# for workloads where ~1e-6 relative force error is acceptable (preview
-# propagation, plot-ahead, interactive scrubbing).  The production and
-# parity engines stay on the two-float kernels; this mode is opt-in and
-# its error is characterised in tests (vs the df64 kernel).
-
-
-def _accel_kernel_f32(
-    pos_ref, mu_ref, rows_ref, out_ref,
-    *, n_bodies: int, tile_rows: int, tile_cols: int,
-):
-    tr, tc = tile_rows, tile_cols
-    n_col_tiles = n_bodies // tc
-    i0 = jax.lax.mul(pl.program_id(0), jnp.int32(tr))
-    row_ids = jax.lax.add(jax.lax.broadcasted_iota(jnp.int32, (tr, 1), 0), i0)
-    rows = rows_ref[:, :]  # (TR, 3)
-
-    def col_tile(k, acc):
-        c0 = jax.lax.mul(k, jnp.int32(tc))
-        col_ids = jax.lax.add(jax.lax.broadcasted_iota(jnp.int32, (1, tc), 1), c0)
-        self_mask = row_ids == col_ids
-
-        d = [
-            pos_ref[c, pl.ds(c0, tc)][None, :] - rows[:, c][:, None]
-            for c in range(3)
-        ]
-        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        r2 = jnp.where(self_mask, jnp.float32(1.0), r2)
-        u = jax.lax.rsqrt(r2)
-        # one Newton refinement: the hardware seed is ~2^-12, the mode
-        # targets full f32 (~2^-24)
-        u = u * (jnp.float32(1.5) - jnp.float32(0.5) * r2 * u * u)
-        w = mu_ref[0, pl.ds(c0, tc)][None, :] * (u * u * u)
-        w = jnp.where(self_mask, jnp.float32(0.0), w)
-        return tuple(
-            acc[c] + jnp.sum(w * d[c], axis=1, keepdims=True) for c in range(3)
-        )
-
-    acc0 = tuple(jnp.zeros((tr, 1), jnp.float32) for _ in range(3))
-    acc = jax.lax.fori_loop(jnp.int32(0), jnp.int32(n_col_tiles), col_tile, acc0)
-    for c in range(3):
-        out_ref[:, c : c + 1] = acc[c]
-
-
-@partial(jax.jit, static_argnames=("tile_rows", "tile_cols", "interpret"))
-def pairwise_accel_f32(
-    pos, mu, tile_rows: int = 256, tile_cols: int = 2048, interpret: bool = False
-):
-    """Fast-mode O(N^2) acceleration: f32 (N, 3) positions + (1, N) mu in,
-    f32 (N, 3) accelerations out (~1e-6 relative force error)."""
     n = pos.shape[0]
-    tile_cols = min(tile_cols, n)
-    tile_rows = min(tile_rows, n)
-    assert n % tile_rows == 0 and n % tile_cols == 0
-
-    lane = pos.T  # (3, N)
-    kernel = partial(
-        _accel_kernel_f32, n_bodies=n, tile_rows=tile_rows, tile_cols=tile_cols
-    )
-    with jax.enable_x64(False):
-        return pl.pallas_call(
-            kernel,
-            grid=(n // tile_rows,),
-            in_specs=[
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            out_shape=jax.ShapeDtypeStruct((n, 3), jnp.float32),
-            interpret=interpret,
-        )(lane, mu, pos)
-
-
-# ---------------------------------------------------------------------------
-# Magnitude-split mode (~1e-9 for hierarchical systems, BEYOND the reference)
-# ---------------------------------------------------------------------------
-#
-# The rung between the mixed mode (~1e-6 every geometry) and df64 (~1e-13):
-# plain-f32 pair math for the weak tail, EXACT f64 for each body's K
-# strongest attractors.  The selection criterion is the f32 ERROR model,
-# not the contribution magnitude: rounding the f64 positions to f32
-# perturbs each pair difference by ~|p| * 2^-24 ABSOLUTE (independent of
-# the separation r), so the induced acceleration error is
-# ~|da/dd| * |p| * 2^-24 ~ mu_j / r^3 * |p| * 2^-24 - i.e. the pairs that
-# hurt are exactly the largest-WEIGHT (mu_j / r^3) pairs: close pairs
-# (catastrophic cancellation) and dominant attractors (their 2^-24
-# relative error is 2^-24 of the TOTAL).  Removing the top-K weights per
-# row from the f32 kernel (an int8 mask streamed with the column tiles)
-# and adding them back from a gathered (N, K) f64 computation deletes
-# both failure modes without any bitwise-replica coupling between the
-# two passes: a masked pair contributes to exactly one of them.
-#
-# Error floor: the surviving weak tail's per-pair f32 roundings
-# (~2^-24 relative, random sign).  For a dominated hierarchy (a solar
-# system - every body's field is sun/primary-led) that is ~2^-24 of a
-# small fraction of the total: measured ~1e-9 (test_pallas_nbody.py).
-# For an unstructured random cloud sum cancellation makes the weak
-# tail's |contribution| sum exceed the net field, so the floor is
-# ~2^-24 relative: measured ~5e-8 - still ~30x under the unsplit f32
-# kernel on the same cloud, with the close-pair blowups gone entirely.
-# The strong set moves on orbital timescales; refresh it per chunk
-# (strong_pair_indices), not per step.
-#
-# No reference analogue (beyond-parity mode, like fast-f32/mixed above).
-
-
-def _accel_kernel_f32_masked(
-    pos_ref, mu_ref, mask_ref, rows_ref, out_ref,
-    *, n_bodies: int, tile_rows: int, tile_cols: int,
-    diag_in_mask: bool = False,
-):
-    tr, tc = tile_rows, tile_cols
-    n_col_tiles = n_bodies // tc
-    i0 = jax.lax.mul(pl.program_id(0), jnp.int32(tr))
-    row_ids = jax.lax.add(jax.lax.broadcasted_iota(jnp.int32, (tr, 1), 0), i0)
-    rows = rows_ref[:, :]  # (TR, 3)
-
-    def col_tile(k, acc):
-        c0 = jax.lax.mul(k, jnp.int32(tc))
-        # strong pairs leave the f32 sum entirely (handled exactly in f64)
-        skip = mask_ref[:, pl.ds(c0, tc)] != 0
-        if not diag_in_mask:
-            col_ids = jax.lax.add(
-                jax.lax.broadcasted_iota(jnp.int32, (1, tc), 1), c0
-            )
-            skip = jnp.logical_or(skip, row_ids == col_ids)
-        # else: the exclusion table already carries the self diagonal
-        # (strong_pair_mask sets it), saving the iota compare + or in the
-        # inner loop — 2 of ~28 VPU ops/pair (split-mode production path)
-
-        d = [
-            pos_ref[c, pl.ds(c0, tc)][None, :] - rows[:, c][:, None]
-            for c in range(3)
-        ]
-        r2 = d[0] * d[0] + d[1] * d[1] + d[2] * d[2]
-        r2 = jnp.where(skip, jnp.float32(1.0), r2)
-        u = jax.lax.rsqrt(r2)
-        u = u * (jnp.float32(1.5) - jnp.float32(0.5) * r2 * u * u)
-        w = mu_ref[0, pl.ds(c0, tc)][None, :] * (u * u * u)
-        w = jnp.where(skip, jnp.float32(0.0), w)
-        return tuple(
-            acc[c] + jnp.sum(w * d[c], axis=1, keepdims=True) for c in range(3)
-        )
-
-    acc0 = tuple(jnp.zeros((tr, 1), jnp.float32) for _ in range(3))
-    acc = jax.lax.fori_loop(jnp.int32(0), jnp.int32(n_col_tiles), col_tile, acc0)
-    for c in range(3):
-        out_ref[:, c : c + 1] = acc[c]
-
-
-@partial(jax.jit, static_argnames=("tile_rows", "tile_cols", "interpret",
-                                   "diag_in_mask"))
-def pairwise_accel_f32_masked(
-    pos, mu, mask,
-    tile_rows: int = 256, tile_cols: int = 2048, interpret: bool = False,
-    diag_in_mask: bool = False,
-):
-    """The f32 fast kernel with per-pair exclusions: ``mask[i, j] != 0``
-    pairs contribute zero (they are re-added exactly by the split mode's
-    f64 correction).  pos (N, 3) f32, mu (1, N) f32, mask (N, N) int8.
-    ``diag_in_mask=True`` promises the mask already excludes the self
-    diagonal (as `strong_pair_mask` builds it), dropping the in-kernel
-    self compare."""
-    return _pallas_f32_masked(
-        pos.T, mu, mask, pos, tile_rows, tile_cols, diag_in_mask, interpret
-    )
-
-
-def _pallas_f32_masked(lane, mu, mask, rows, tile_rows, tile_cols,
-                       diag_in_mask, interpret):
-    """Shared pallas_call: lane (3, N) f32 sources, rows (NL, 3) f32
-    receivers, mask (NL, N) int8, out (NL, 3) f32.  NL == N for the
-    square wrapper; the rectangular (row-sharded) wrapper requires
-    ``diag_in_mask`` (local row ids differ from global column ids)."""
-    n = lane.shape[1]
-    nl = rows.shape[0]
-    tile_cols = min(tile_cols, n)
-    tile_rows = min(tile_rows, nl)
-    assert n % tile_cols == 0 and nl % tile_rows == 0
-    assert mask.shape == (nl, n), (mask.shape, nl, n)
-
-    kernel = partial(
-        _accel_kernel_f32_masked, n_bodies=n, tile_rows=tile_rows,
-        tile_cols=tile_cols, diag_in_mask=diag_in_mask,
-    )
-    with jax.enable_x64(False):
-        return pl.pallas_call(
-            kernel,
-            grid=(nl // tile_rows,),
-            in_specs=[
-                pl.BlockSpec((3, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec((1, n), lambda i: (0, 0), memory_space=pltpu.VMEM),
-                pl.BlockSpec(
-                    (tile_rows, n), lambda i: (i, 0), memory_space=pltpu.VMEM
-                ),
-                pl.BlockSpec((tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            ],
-            out_specs=pl.BlockSpec(
-                (tile_rows, 3), lambda i: (i, 0), memory_space=pltpu.VMEM
-            ),
-            out_shape=jax.ShapeDtypeStruct((nl, 3), jnp.float32),
-            interpret=interpret,
-        )(lane, mu, mask, rows)
-
-
-@partial(jax.jit, static_argnames=("tile_rows", "tile_cols", "interpret"))
-def pairwise_accel_f32_masked_rows(
-    pos, mu, mask, rows,
-    tile_rows: int = 256, tile_cols: int = 2048, interpret: bool = False,
-):
-    """Rectangular (row-shardable) masked f32 kernel: pos (N, 3) f32 ALL
-    source bodies, rows (NL, 3) f32 local receivers, mask (NL, N) int8
-    exclusion table carrying the GLOBAL self diagonal
-    (`strong_pair_mask_rows`).  Column accumulation order matches the
-    square kernel for equal tile_cols, so a row decomposition is
-    bitwise-identical to the unsharded result."""
-    return _pallas_f32_masked(
-        pos.T, mu, mask, rows, tile_rows, tile_cols, True, interpret
-    )
-
-
-@partial(jax.jit, static_argnames=("k",))
-def strong_pair_indices(pos, mu, k: int = 16):
-    """Per-row top-k columns by weight mu_j / r_ij^3 - the f32 error
-    criterion (see the section comment).  pos (N, 3), mu (N,); returns
-    (N, k) int32 column indices, self excluded.  O(N^2) scratch: run per
-    chunk, not per step."""
-    # k == n would let top_k select the -inf self entry, so idx would
-    # contain i itself and the f64 correction would divide by r2 == 0
-    # (NaN); fail loudly instead (ADVICE r4)
-    assert k < pos.shape[0], f"strong set k={k} must be < n={pos.shape[0]}"
-    p = pos.astype(jnp.float32)
-    d = p[None, :, :] - p[:, None, :]
-    r2 = jnp.sum(d * d, axis=-1)
-    n = p.shape[0]
-    eye = jnp.eye(n, dtype=bool)
-    r2 = jnp.where(eye, jnp.float32(1.0), r2)
-    s = mu.astype(jnp.float32)[None, :] * jax.lax.rsqrt(r2) ** 3
-    s = jnp.where(eye, jnp.float32(-jnp.inf), s)
-    _, idx = jax.lax.top_k(s, k)
-    return idx.astype(jnp.int32)
-
-
-def strong_pair_mask(idx, n: int):
-    """(N, N) int8 mask with 1 at each (i, idx[i, k]) AND the self
-    diagonal - the masked f32 kernel's exclusion table for the index
-    set.  Carrying the diagonal here (built once per chunk) lets the
-    kernel skip its per-pair self compare (`diag_in_mask=True`), 2 of
-    ~28 inner-loop VPU ops."""
-    rows = jnp.arange(idx.shape[0], dtype=idx.dtype)[:, None]
-    m = jnp.zeros((idx.shape[0], n), jnp.int8).at[rows, idx].set(jnp.int8(1))
-    return m.at[rows[:, 0], rows[:, 0]].set(jnp.int8(1))
-
-
-@partial(jax.jit, static_argnames=("k",))
-def strong_pair_indices_rows(pos, rows, mu, row0, k: int = 16):
-    """Rectangular `strong_pair_indices`: top-k GLOBAL columns for the
-    local receiver rows.  pos (N, 3) all sources, rows (NL, 3) local
-    receivers at global offset ``row0`` (traced scalar), mu (N,).
-    Row-independent, so a row decomposition matches the square result
-    bitwise."""
-    assert k < pos.shape[0]
-    p = pos.astype(jnp.float32)
-    r = rows.astype(jnp.float32)
-    d = p[None, :, :] - r[:, None, :]                       # (NL, N, 3)
-    r2 = jnp.sum(d * d, axis=-1)
-    nl = r.shape[0]
-    self_ = (
-        jnp.arange(pos.shape[0], dtype=jnp.int32)[None, :]
-        == (row0 + jnp.arange(nl, dtype=jnp.int32))[:, None]
-    )
-    r2 = jnp.where(self_, jnp.float32(1.0), r2)
-    s = mu.astype(jnp.float32)[None, :] * jax.lax.rsqrt(r2) ** 3
-    s = jnp.where(self_, jnp.float32(-jnp.inf), s)
-    _, idx = jax.lax.top_k(s, k)
-    return idx.astype(jnp.int32)
-
-
-def strong_pair_mask_rows(idx, n: int, row0):
-    """Rectangular `strong_pair_mask`: (NL, N) exclusion table for local
-    rows, self diagonal at the GLOBAL column row0 + i."""
-    rows = jnp.arange(idx.shape[0], dtype=idx.dtype)[:, None]
-    m = jnp.zeros((idx.shape[0], n), jnp.int8).at[rows, idx].set(jnp.int8(1))
-    return m.at[rows[:, 0], row0 + rows[:, 0]].set(jnp.int8(1))
-
-
-def _strong_correction(pos, mu, idx):
-    """Exact (native-precision) acceleration from each row's strong set:
-    gathered (N, K) pair math in the input dtype (f64 in production).
-    On TPU the f64 chain is emulated and costs more than the whole masked
-    f32 kernel (measured 345 us vs 210 us at N=4096); production uses
-    `_strong_correction_df64` and keeps this as the CI cross-check."""
-    pj = pos[idx]                          # (N, K, 3)
-    d = pj - pos[:, None, :]
-    r2 = jnp.sum(d * d, axis=-1)
-    w = mu[idx] / (r2 * jnp.sqrt(r2))      # mu_j / r^3
-    return jnp.sum(w[..., None] * d, axis=1)
-
-
-def _split_f64(x):
-    """Device-side exact limb split: f64 array -> TwoFloat of f32."""
-    hi = x.astype(jnp.float32)
-    lo = (x - hi.astype(x.dtype)).astype(jnp.float32)
-    return TwoFloat(hi, lo)
-
-
-def _strong_corr_kernel(d_hi_ref, d_lo_ref, mu_hi_ref, mu_lo_ref,
-                        out_hi_ref, out_lo_ref):
-    """Two-float strong-set correction over gathered (K, TC) pair tiles.
-
-    Must be a Pallas kernel, not jnp: XLA's HLO algebraic simplifier
-    rewrites quick_two_sum's ``b - ((a + b) - a)`` to zero inside any
-    jitted composition (measured: the identical jnp chain degrades from
-    2^-47 to f32-grade 3.7e-8 the moment it is jitted, on CPU and TPU
-    alike), so every eft chain in this package runs under Mosaic, which
-    preserves the written arithmetic.  Padded K rows carry mu == 0 and
-    d == 0; the r2 == 0 clamp keeps their rsqrt finite so they contribute
-    exactly zero."""
-    d = [TwoFloat(d_hi_ref[c], d_lo_ref[c]) for c in range(3)]   # (K, TC)
-    r2 = eft.add(eft.add(eft.sqr(d[0]), eft.sqr(d[1])), eft.sqr(d[2]))
-    one = jnp.ones_like(r2.hi)
-    pad = r2.hi == jnp.float32(0.0)
-    r2 = eft.where(pad, TwoFloat(one, jnp.zeros_like(one)), r2)
-    u = _rsqrt_df(r2)
-    mu = TwoFloat(mu_hi_ref[:, :], mu_lo_ref[:, :])
-    # (u^2 * mu) * u product order: see the subnormal-flush note in
-    # _accel_kernel_df64
-    w = eft.mul(eft.mul(eft.sqr(u), mu), u)
-    for c in range(3):
-        s = _dd_tree_sum(eft.mul(w, d[c]), axis=0)               # (1, TC)
-        out_hi_ref[c : c + 1, :] = s.hi
-        out_lo_ref[c : c + 1, :] = s.lo
-
-
-def _strong_correction_df64(pos, mu, idx, tile_cols: int = 512,
-                            interpret: bool = False):
-    """The strong-set correction in two-float f32 (~2^-47 relative): the
-    same pair chain as `_strong_correction` but on gathered (N, K) limb
-    pairs inside a Pallas kernel, so it runs on the VPU at f32 speed
-    instead of XLA's emulated-f64 (which costs more than the whole masked
-    kernel: 345 us vs 210 us at N=4096).  2^-47 sits five orders below
-    the split mode's ~1e-9 weak-tail envelope, so swapping it in is
-    accuracy-neutral.
-
-    The displacement is differenced in f64 BEFORE the limb split: strong
-    sets are exactly the close pairs, where splitting the POSITIONS first
-    amplifies the limbs' 2^-48-of-|p| representation error by |p|/|d|
-    (measured 1.7e-12 row error on the hierarchy fixture vs 4e-14 this
-    way).  The gather / f64 subtract / limb split stay in XLA — they are
-    exact data movement plus correctly-rounded f64 ops with no EFT
-    identities for the simplifier to destroy; the compensated chain runs
-    under Mosaic (see `_strong_corr_kernel`)."""
-    n, k = idx.shape
-    kp = 1 << (k - 1).bit_length()
-    d64 = pos[idx] - pos[:, None, :]                           # (N, K, 3)
-    d = _split_f64(jnp.transpose(d64, (2, 1, 0)))              # (3, K, N)
-    muj = _split_f64(mu[idx].T)                                # (K, N)
-    if kp != k:
-        padw = ((0, 0), (kp - k, 0), (0, 0))
-        d = TwoFloat(jnp.pad(d.hi, padw), jnp.pad(d.lo, padw))
-        muj = TwoFloat(jnp.pad(muj.hi, padw[1:]), jnp.pad(muj.lo, padw[1:]))
-    tc = min(tile_cols, n)
-    assert n % tc == 0
-    out_hi, out_lo = pl.pallas_call(
-        _strong_corr_kernel,
-        grid=(n // tc,),
-        in_specs=[
-            # literal index-map zeros must match the grid index dtype or
-            # Mosaic fails to legalize the (i64, i64, i32) return under x64
-            pl.BlockSpec((3, kp, tc), lambda i: (i * 0, i * 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, kp, tc), lambda i: (i * 0, i * 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((kp, tc), lambda i: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((kp, tc), lambda i: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((3, tc), lambda i: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, tc), lambda i: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((3, n), jnp.float32),
-            jax.ShapeDtypeStruct((3, n), jnp.float32),
-        ],
+    tile = max(block_rows, block_cols)
+    n_pad = -(-n // tile) * tile
+    p = jnp.pad(pos, ((0, n_pad - n), (0, 0)))
+    m = jnp.pad(mu, (0, n_pad - n))
+    vec = jax.ShapeDtypeStruct((n_pad,), pos.dtype)
+    rows = pl.BlockSpec((block_rows,), lambda i: (i,))
+    whole = pl.BlockSpec((n_pad,), lambda i: (0,))
+    ax, ay, az = pl.pallas_call(
+        partial(_force_kernel, n=n, block_rows=block_rows, block_cols=block_cols),
+        grid=(n_pad // block_rows,),
+        in_specs=[whole] * 4,
+        out_specs=[rows] * 3,
+        out_shape=[vec] * 3,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=num_warps),
         interpret=interpret,
-    )(d.hi, d.lo, muj.hi, muj.lo)
-    return out_hi.T.astype(pos.dtype) + out_lo.T.astype(pos.dtype)
-
-
-def _strong_corr_kernel_fast(gp_hi_ref, gp_lo_ref, rows_hi_ref, rows_lo_ref,
-                             muj_hi_ref, muj_lo_ref, out_hi_ref, out_lo_ref):
-    """Two-float strong-set correction on PRE-GATHERED position limbs.
-
-    The round-4 anatomy (docs/split_anatomy.json + the round-5 isolation
-    runs) showed the split mode's gap is not the correction kernel (41 us
-    at N=4096) but its XLA feed with a RUNTIME index set: the f64 gather
-    of (N, K, 3) positions, the f64 transposes to lane-major, and the
-    per-step limb split cost ~1190 us/step — 29x the kernel.  This
-    variant moves the pair differencing INSIDE Mosaic (eft.sub on limbs,
-    safe from the HLO simplifier) so the XLA side shrinks to one packed
-    f32 gather of 6 limb channels plus one f32 transpose; the mu-limb
-    gather is loop-invariant (idx is fixed per chunk) and XLA's while
-    LICM hoists it out of the step scan.
-
-    Numerics: differencing SPLIT limbs instead of f64 positions costs the
-    limbs' 2^-48-of-|p| representation error amplified by |p|/|d| on
-    close pairs — measured 1.7e-12 row error on the hierarchy fixture vs
-    4e-14 for the f64-differenced feed (`_strong_correction_df64`'s
-    docstring), three decades inside the split mode's ~1e-9 weak-tail
-    envelope.  Padded K rows carry mu == 0 and gp == 0, so d == -row;
-    the r2 == 0 clamp keeps a body sitting exactly at the origin finite.
-    """
-    rows = [TwoFloat(rows_hi_ref[c : c + 1, :], rows_lo_ref[c : c + 1, :])
-            for c in range(3)]                                   # (1, TC)
-    d = [eft.sub(TwoFloat(gp_hi_ref[c], gp_lo_ref[c]), rows[c])
-         for c in range(3)]                                      # (KP, TC)
-    r2 = eft.add(eft.add(eft.sqr(d[0]), eft.sqr(d[1])), eft.sqr(d[2]))
-    one = jnp.ones_like(r2.hi)
-    pad = r2.hi == jnp.float32(0.0)
-    r2 = eft.where(pad, TwoFloat(one, jnp.zeros_like(one)), r2)
-    u = _rsqrt_df(r2)
-    mu = TwoFloat(muj_hi_ref[:, :], muj_lo_ref[:, :])
-    w = eft.mul(eft.mul(eft.sqr(u), mu), u)
-    for c in range(3):
-        s = _dd_tree_sum(eft.mul(w, d[c]), axis=0)               # (1, TC)
-        out_hi_ref[c : c + 1, :] = s.hi
-        out_lo_ref[c : c + 1, :] = s.lo
-
-
-def _strong_correction_fast(pos, mu, idx, tile_cols: int = 512,
-                            interpret: bool = False, rows=None):
-    """The production strong-set correction: split-limb feed, TwoFloat
-    differencing in-kernel (see `_strong_corr_kernel_fast`).  ~1.7e-12
-    relative on the hierarchy fixture — accuracy-equivalent for the
-    ~1e-9-grade split mode, and the XLA glue drops from ~1190 us/step to
-    one packed f32 gather + one f32 transpose.
-
-    ``rows`` (NL, 3) selects the rectangular form: receivers are the
-    local rows while ``idx`` holds GLOBAL source columns into ``pos`` —
-    the row decomposition for the sharded split mode.  Per-receiver
-    arithmetic is row-independent, so it is bitwise vs the square form."""
-    nl, k = idx.shape
-    kp = 1 << (k - 1).bit_length()
-    hi_all = pos.astype(jnp.float32)                             # (N, 3)
-    lo_all = (pos - hi_all.astype(pos.dtype)).astype(jnp.float32)
-    if rows is None:
-        rows = pos
-        hi, lo = hi_all, lo_all
-    else:
-        hi = rows.astype(jnp.float32)                            # (NL, 3)
-        lo = (rows - hi.astype(rows.dtype)).astype(jnp.float32)
-    packed = jnp.concatenate([hi_all, lo_all], axis=1)           # (N, 6)
-    g = jnp.take(packed, idx.reshape(-1), axis=0).reshape(nl, k, 6)
-    gt = jnp.transpose(g, (2, 1, 0))                             # (6, K, NL)
-    # mu and idx are loop-invariant across a chunk's steps: XLA's while
-    # LICM hoists this gather + split + transpose out of the step scan
-    muj = _split_f64(mu[idx].T)                                  # (K, NL)
-    gp_hi, gp_lo = gt[:3], gt[3:]
-    if kp != k:
-        padw = ((0, 0), (kp - k, 0), (0, 0))
-        gp_hi = jnp.pad(gp_hi, padw)
-        gp_lo = jnp.pad(gp_lo, padw)
-        muj = TwoFloat(jnp.pad(muj.hi, padw[1:]), jnp.pad(muj.lo, padw[1:]))
-    tc = min(tile_cols, nl)
-    assert nl % tc == 0
-    out_hi, out_lo = pl.pallas_call(
-        _strong_corr_kernel_fast,
-        grid=(nl // tc,),
-        in_specs=[
-            pl.BlockSpec((3, kp, tc), lambda i: (i * 0, i * 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, kp, tc), lambda i: (i * 0, i * 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, tc), lambda i: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, tc), lambda i: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((kp, tc), lambda i: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((kp, tc), lambda i: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((3, tc), lambda i: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((3, tc), lambda i: (i * 0, i),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((3, nl), jnp.float32),
-            jax.ShapeDtypeStruct((3, nl), jnp.float32),
-        ],
-        interpret=interpret,
-    )(gp_hi, gp_lo, hi.T, lo.T, muj.hi, muj.lo)
-    return out_hi.T.astype(pos.dtype) + out_lo.T.astype(pos.dtype)
-
-
-@partial(jax.jit, static_argnames=("tile_rows", "tile_cols", "interpret",
-                                   "exact_f64", "corr"))
-def pairwise_accel_split(
-    pos, mu, idx, mask,
-    tile_rows: int = 256, tile_cols: int = 2048, interpret: bool = False,
-    exact_f64: bool = False, corr: str = "fast",
-):
-    """Magnitude-split O(N^2) acceleration: f64 (N, 3) positions in,
-    f64 (N, 3) accelerations out.  idx/mask from strong_pair_indices /
-    strong_pair_mask on a recent snapshot (refresh per chunk); the mask
-    MUST carry the self diagonal (strong_pair_mask does) — the masked
-    kernel runs with ``diag_in_mask=True`` here.
-
-    ``corr`` selects the strong-set correction:
-      - "fast" (production): split-limb feed, TwoFloat differencing
-        in-kernel (~1.7e-12 on the hierarchy fixture; one f32 gather of
-        XLA glue per step — see `_strong_corr_kernel_fast`)
-      - "dd":   f64-differenced feed (~4e-14; the f64 gather/transpose
-        glue costs ~29x the kernel — kept as the accuracy cross-check)
-      - "f64":  native-f64 jnp chain (CI oracle; slow on TPU)
-    ``exact_f64=True`` is the legacy spelling of ``corr="f64"``."""
-    pos32 = pos.astype(jnp.float32)
-    mu32 = mu.astype(jnp.float32).reshape(1, -1)
-    a32 = pairwise_accel_f32_masked(
-        pos32, mu32, mask,
-        tile_rows=tile_rows, tile_cols=tile_cols, interpret=interpret,
-        diag_in_mask=True,
-    )
-    if exact_f64:
-        corr = "f64"
-    if corr == "f64":
-        c = _strong_correction(pos, mu, idx)
-    elif corr == "dd":
-        c = _strong_correction_df64(pos, mu, idx, interpret=interpret)
-    else:
-        assert corr == "fast", corr
-        c = _strong_correction_fast(pos, mu, idx, interpret=interpret)
-    return c + a32.astype(pos.dtype)
-
-
-@partial(jax.jit, static_argnames=("tile_rows", "tile_cols", "interpret"))
-def pairwise_accel_split_rows(
-    pos, rows, mu, idx, mask,
-    tile_rows: int = 256, tile_cols: int = 2048, interpret: bool = False,
-):
-    """Rectangular (row-shardable) magnitude-split acceleration: pos
-    (N, 3) f64 ALL bodies, rows (NL, 3) f64 local receivers, mu (N,),
-    idx (NL, K) GLOBAL strong columns (`strong_pair_indices_rows`),
-    mask (NL, N) int8 with the global diagonal
-    (`strong_pair_mask_rows`).  Returns (NL, 3) f64.
-
-    Each piece is per-receiver-independent with column order preserved,
-    so a row decomposition over a mesh axis (all_gather sources, local
-    rows) is BITWISE-identical to the square `pairwise_accel_split` for
-    equal tile_cols — the same contract as `pairwise_accel_df64_rows`.
-    Production correction only (``corr="fast"``); the cross-check
-    oracles stay on the square form."""
-    pos32 = pos.astype(jnp.float32)
-    mu32 = mu.astype(jnp.float32).reshape(1, -1)
-    a32 = pairwise_accel_f32_masked_rows(
-        pos32, mu32, mask, rows.astype(jnp.float32),
-        tile_rows=tile_rows, tile_cols=tile_cols, interpret=interpret,
-    )
-    c = _strong_correction_fast(pos, mu, idx, interpret=interpret, rows=rows)
-    return c + a32.astype(pos.dtype)
+        name="pairwise_accel_f64",
+    )(p[:, 0], p[:, 1], p[:, 2], m)
+    return jnp.stack([ax, ay, az], axis=-1)[:n]

@@ -8,7 +8,7 @@ orthogonal-polynomial least-squares routine
 Because the sample abscissae are FIXED, the least-squares fit is a linear map
 from the 9 samples to the d+1 coefficients.  We precompute that (d+1) x 9
 matrix once (f64 pseudo-inverse of the Vandermonde matrix) and batch the fit
-as an einsum over bodies x segments - a TPU-friendly matmul instead of the
+as an einsum over bodies x segments - one batched matmul instead of the
 reference's per-segment iterative algorithm.  Both solve the identical
 least-squares problem; results agree to f64 rounding.
 

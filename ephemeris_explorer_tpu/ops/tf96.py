@@ -1,6 +1,6 @@
 """Triple-f32 ("tf96", ~72-bit) element-wise arithmetic.
 
-The 3-limb Pallas force kernel (ops/pallas_nbody._accel_kernel3) removes the
+The 3-limb force (ops/nbody_modes.pairwise_accel_limbs) removes the
 position-difference rounding but still evaluates r^2, rsqrt and the mu
 products in TWO-float arithmetic (~2^-47), and a Newton-refined rsqrt carries
 a small systematic bias at that level.  A biased force error integrates
@@ -9,7 +9,7 @@ century-scale moon drift (docs/ACCURACY.md).  This module provides the
 ~72-bit pair math for the full-precision force path
 (:func:`..ops.nbody_full3.pairwise_accel_full3`): every op keeps three f32
 limbs, built from the same error-free transforms as :mod:`.eft` (raw f32 ops
-on the TPU VPU are exactly rounded IEEE; the f64 emulation is not).
+are exactly rounded IEEE on every supported device).
 
 A tf96 value is a tuple of three same-shaped f32 arrays (a pytree), limbs in
 decreasing magnitude.  Not a general-purpose number type: just the ops the
@@ -62,17 +62,12 @@ def from_two(x: TwoFloat) -> tuple:
 
 
 def from_f64(x) -> tuple:
-    """Exact 3-limb lift of an f64 (or emulated-f64) array (53 < 72 bits)."""
-    a0 = x.astype(jnp.float32)
-    r = x - a0.astype(x.dtype)
-    a1 = r.astype(jnp.float32)
-    r = r - a1.astype(x.dtype)
-    a2 = r.astype(jnp.float32)
-    return (a0, a1, a2)
+    """Exact 3-limb lift of an f64 array (53 < 72 bits)."""
+    return eft.f64_limbs(x, 3)
 
 
 def to_f64(a: tuple):
-    """Round to (emulated) f64: sum low-to-high."""
+    """Round to f64: sum low-to-high."""
     return a[2].astype(jnp.float64) + a[1].astype(jnp.float64) + a[0].astype(
         jnp.float64
     )

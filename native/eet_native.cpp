@@ -1,6 +1,6 @@
 // Native host runtime for ephemeris_explorer_tpu.
 //
-// The TPU owns integration and fitting; this library owns the host-side
+// The device owns integration and fitting; this library owns the host-side
 // serving path the explorer UI hits every frame - the role the reference's
 // compiled Rust runtime plays for evaluation/plotting/picking:
 //

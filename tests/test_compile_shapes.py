@@ -1,7 +1,6 @@
 """Compile-shape bounding invariants (round 3).
 
-Through a remote-compile toolchain every distinct jitted shape costs
-minutes; the package bounds the shape universe with canonical chunk /
+Every distinct jitted shape is a fresh compile; the package bounds the shape universe with canonical chunk /
 knot / batch sizes (ephemeris.CHUNK_STEPS, spacecraft.KNOT_CAPACITY,
 pow2 fleet padding) and dynamic adaptive parameters.  These tests pin
 the BEHAVIOURAL contracts of those choices: padding must not leak into

@@ -71,11 +71,10 @@ def test_elm2_alpha_sum_accuracy():
 def test_from_f64_host_exact():
     """Host limb split represents any binary64 exactly (3 f32 limbs).
 
-    This is the IC-transfer fix: shipping f64 to the TPU rounds it to the
-    emulated-f64 pair (~2^-49 relative), a um-scale perturbation of
-    heliocentric initial positions that measured as a secular ~m/yr
-    along-track moon drift (docs/ACCURACY.md round 3).  f32 limbs ship
-    exactly.
+    The extended engines start from these limbs: f32 transfers are exact,
+    so the device state starts bit-for-bit at the host's initial
+    conditions (a um-scale initial-position error becomes a secular
+    along-track moon drift, docs/ACCURACY.md).
     """
     rng = np.random.default_rng(7)
     # heliocentric-position-like magnitudes with full mantissas

@@ -1,21 +1,16 @@
-"""CI gate for the host-routed small-batch propagation path.
+"""CI gate for the placement of the batched spacecraft driver.
 
-Round 3 shipped interactive replans through a CPU-committed compile of the
-batched adaptive driver (`spacecraft._jitted_propagate_batch(backend="cpu")`,
-routed by `_propagate_backend`), but on this CPU-only CI box the routing
-branch is dead by default, so nothing exercised it.  These tests pin the
-path down explicitly:
+Every batch runs on the default device; a caller who wants another device
+commits the operands there with ``jax.device_put`` (the smoke script's
+host reference does this).  These tests pin that down:
 
-* the explicit ``backend="cpu"`` wrapper (device_put-committed operands)
-  must produce BITWISE-identical results to the plain jit path on identical
-  inputs — same program, same backend here, so any difference is a transfer
-  or placement bug in the wrapper;
-* `_host_packed` must mirror a device pack to numpy without changing values
-  and must cache per pack snapshot;
+* the compiled batch driver on operands committed to the host device must
+  give BITWISE the same result as on uncommitted operands — same program,
+  same backend here, so any difference is a transfer or placement bug;
+* `propagate_ships` (grouping, padding to a power of two, prefix fetch)
+  must reproduce the batch driver on host-committed operands bitwise;
 * `make_host_mirror` must be a genuine LRU (hit refreshes recency), bounded,
-  and must pin the keying device buffer while the entry lives;
-* `_propagate_backend` must route small batches to the host exactly when
-  the default backend is an accelerator.
+  and must pin the keying device buffer while the entry lives.
 
 Reference semantics being protected: restart/replan latency paths
 (flight_plan.rs:264-303, prediction.rs:429-432).
@@ -34,10 +29,9 @@ from ephemeris_explorer_tpu.hostmirror import make_host_mirror
 from ephemeris_explorer_tpu.io import scene
 from ephemeris_explorer_tpu.io.scene import ShipBurn
 from ephemeris_explorer_tpu.spacecraft import (
-    _host_packed,
     _jitted_propagate_batch,
-    _propagate_backend,
     build_timeline,
+    propagate_ships,
     ship_params,
     stack_timelines,
 )
@@ -107,23 +101,6 @@ def test_host_mirror_pins_key():
 
 
 # ---------------------------------------------------------------------------
-# Routing predicate
-# ---------------------------------------------------------------------------
-
-
-def test_propagate_backend_routing(monkeypatch):
-    # On an accelerator box: small batches go to the host, big fleets stay
-    monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    assert _propagate_backend(1) == "cpu"
-    assert _propagate_backend(16) == "cpu"
-    assert _propagate_backend(17) is None
-    assert _propagate_backend(64) is None
-    # On a cpu box there is nothing to route
-    monkeypatch.setattr(jax, "default_backend", lambda: "cpu")
-    assert _propagate_backend(1) is None
-
-
-# ---------------------------------------------------------------------------
 # Cross-backend equality of the batched driver
 # ---------------------------------------------------------------------------
 
@@ -142,14 +119,14 @@ def _result_arrays(r):
 
 
 def test_cross_backend_bitwise_equality(sem_ctx):
-    """device-path driver vs the backend="cpu" wrapper on identical
+    """the batch driver on uncommitted operands vs the same driver on
+    operands committed to the host device with device_put, on identical
     (packed, timeline, state) inputs: identical knot counts, times,
     positions, velocities, reasons — bitwise.
 
-    On this CI box both compiles land on the cpu backend, so the test
-    isolates exactly what the wrapper adds: the device_put commit of every
-    operand (including the numpy pack mirror) and the host-side param
-    vectors.  Any placement/transfer bug shows up as a result difference.
+    On this CI box both runs land on the cpu backend, so the test isolates
+    exactly what an explicit placement adds: the device_put commit of every
+    operand, the pack included.
     """
     sc, eph = sem_ctx
     ship = sc.ships[0]
@@ -170,16 +147,17 @@ def test_cross_backend_bitwise_equality(sem_ctx):
     params = ship_params(ship)
     end = t0 + 2.0 * 86400.0
     args = (
+        packed,
+        tl,
         np.asarray([t0]),
         np.asarray(ship.position, dtype=np.float64)[None],
         np.asarray(ship.velocity, dtype=np.float64)[None],
         np.asarray([end]),
     )
 
-    fn_dev = _jitted_propagate_batch(ship.integrator, params, 4096, None)
-    fn_cpu = _jitted_propagate_batch(ship.integrator, params, 4096, "cpu")
-    r_dev = _result_arrays(fn_dev(packed, tl, *args))
-    r_cpu = _result_arrays(fn_cpu(_host_packed(packed), tl, *args))
+    fn = _jitted_propagate_batch(ship.integrator, params, 4096)
+    r_dev = _result_arrays(fn(*args))
+    r_cpu = _result_arrays(fn(*jax.device_put(args, jax.devices("cpu")[0])))
 
     assert len(r_dev) == len(r_cpu)
     for a, b in zip(r_dev, r_cpu):
@@ -189,17 +167,39 @@ def test_cross_backend_bitwise_equality(sem_ctx):
     assert int(np.asarray(r_dev[3]).max()) > 2
 
 
-def test_host_packed_mirror(sem_ctx):
-    """_host_packed returns a numpy pack with identical values and caches
-    one mirror per pack snapshot."""
-    _, eph = sem_ctx
-    packed = eph.pack()
-    m1 = _host_packed(packed)
-    assert isinstance(m1.coeffs, np.ndarray)
-    for dev, host in zip(packed, m1):
-        np.testing.assert_array_equal(np.asarray(dev), np.asarray(host))
-    # cached: same snapshot -> same mirror object
-    m2 = _host_packed(packed)
-    assert m1 is m2 or all(a is b for a, b in zip(m1, m2))
-    # an already-host pack passes through untouched
-    assert _host_packed(m1) is m1
+@pytest.mark.parametrize("n_ships", [1, 3])
+def test_propagate_ships_host_placement_bitwise(sem_ctx, n_ships):
+    """propagate_ships and the batch driver on operands committed to the
+    host device give identical trajectories, bitwise (the fleet is padded
+    to a power of two in one and not in the other)."""
+    import dataclasses
+
+    sc, eph = sem_ctx
+    base = sc.ships[0]
+    t0 = base.start.as_offset_seconds()
+    ships = [
+        dataclasses.replace(
+            base, name=f"s{k}", position=base.position + np.array([50.0 * k, 0.0, 0.0]),
+            end=Epoch.from_offset_seconds(t0 + 86400.0),
+        )
+        for k in range(n_ships)
+    ]
+    dev = propagate_ships(eph, ships, max_knots=1024)
+    index = {n: i for i, n in enumerate(eph.names)}
+    args = (
+        eph.pack(),
+        stack_timelines([build_timeline(s.burns, index) for s in ships]),
+        np.full(n_ships, t0),
+        np.stack([s.position for s in ships]),
+        np.stack([s.velocity for s in ships]),
+        np.full(n_ships, t0 + 86400.0),
+    )
+    fn = _jitted_propagate_batch(base.integrator, ship_params(base), 1024)
+    r = jax.device_get(fn(*jax.device_put(args, jax.devices("cpu")[0])))
+    assert sorted(dev) == sorted(s.name for s in ships)
+    for i, s in enumerate(ships):
+        k = int(r.count[i])
+        tr = dev[s.name]
+        assert len(tr.ts) == k > 2
+        for a, b in ((tr.ts, r.ts[i, :k]), (tr.pos, r.pos[i, :k]), (tr.vel, r.vel[i, :k])):
+            np.testing.assert_array_equal(a, b)

@@ -1,15 +1,13 @@
 """Gates for the pair-precision beta sums (the ROADMAP "TwoFloat ddys ring +
 pair-precision beta sums" rung, round 4).
 
-The ELM2 beta rows cancel ~29x (QT12 c_dy), so the (emulated-)f64 dot the
-expansion engines used loses ~2^-48 * 29 of the increment per step — measured
-on the TPU at 8.7e-14 relative, the dominant per-step noise once the force is
-3-limb grade.  `multistep._wsum_precise` forms each term with exact f32
-two_prods (weights pre-split host-side into three f32 limbs) and accumulates
-in the 4-limb expansion: measured 8.4e-19 relative on the TPU.
+The ELM2 beta rows cancel ~29x (QT12 c_dy), so a base-precision dot loses
+~29 ulps of the increment per step.  `multistep._wsum_precise` forms each
+term with exact f32 two_prods (weights pre-split host-side into three f32
+limbs) and accumulates in the 4-limb expansion (~2^-60 relative).
 
-CI caveat (documented in ops/pallas_elm2.py): XLA:CPU re-rounds fused f32 EFT
-compositions (every primitive alone compiles exactly; the fused composition
+CI caveat (documented in integrators/multistep._wsum_precise): XLA:CPU
+re-rounds fused f32 EFT compositions (every primitive alone compiles exactly; the fused composition
 loses the low word at ~2e-14 relative).  The CPU gates below therefore bound
 at 1e-12 — still far below the f64 dot's cancellation-amplified error under
 an adversarial weight row — and the EAGER path is gated at the design level.
@@ -91,7 +89,7 @@ def test_two_sum_reduce_error_free():
 
 
 def test_wsum_precise_eager_design_grade():
-    """Eager (and TPU-jitted; see module docstring) accuracy: ~2^-60."""
+    """Eager (and GPU-jitted; see module docstring) accuracy: ~2^-60."""
     tab = get("QuinlanTremaine12")
     w = ms._prescale_f128(tab.c_dy, 600.0 * 600.0, float(tab.beta_d))
     _, hi, lo = _ring()
@@ -104,8 +102,8 @@ def test_wsum_precise_eager_design_grade():
 
 def test_wsum_precise_jit_beats_cancellation():
     """Under jit (XLA:CPU re-rounds fused EFT chains; see module docstring)
-    the result must still be orders below the cancellation-amplified f64
-    grade the emulated backend pays (~2^-48 * 29 ~ 1e-13)."""
+    the result must still be orders below the cancellation-amplified
+    grade of a ~2^-48 pair dot (~2^-48 * 29 ~ 1e-13)."""
     tab = get("QuinlanTremaine12")
     w = ms._prescale_f128(tab.c_dy, 600.0 * 600.0, float(tab.beta_d))
     _, hi, lo = _ring()

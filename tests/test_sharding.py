@@ -108,475 +108,93 @@ def test_sharded_fleet_matches_unsharded():
     )
 
 
-def test_fused_ensemble_scan_f_matches_plain():
-    """The pair-native fused ensemble scan (force grid + TwoFloat update
-    kernel, interpret mode on CPU) tracks the plain emulated-f64 scan."""
-    e, n = 2, 16
+def test_fused_ensemble_scan_matches_per_member():
+    """The single-device ensemble scan (ensemble axis inside the carry,
+    velocity deferred) equals the per-member scan with per-step velocity."""
+    from ephemeris_explorer_tpu.integrators.multistep import elm2_init, elm2_step
+
+    e, n = 3, 16
     rng = np.random.default_rng(9)
     pos = rng.normal(size=(e, n, 3)) * 1.0e6
     vel = rng.normal(size=(e, n, 3)) * 1.0
     mu = rng.uniform(1.0e3, 1.0e5, size=n)
-    from ephemeris_explorer_tpu.integrators import get
-
     tab = get("QuinlanTremaine12")
     h = 600.0
     steps = 20
 
     carry0 = sh.init_fused_ensemble_carry(tab, mu, 0.0, pos, vel, h)
-    run_old = sh.make_fused_ensemble_scan(tab, mu, h, steps)
-    run_f, to_f = sh.make_fused_ensemble_scan_f(
-        tab, mu, h, steps, interpret=True, tile_rows=8, tile_cols=8
-    )
+    out = sh.make_fused_ensemble_scan(tab, mu, h, steps)(carry0)
 
-    old = run_old(carry0)
-    new = run_f(to_f(carry0))
-    y_old = np.asarray(old.ys[0])
-    y_new = (
-        np.asarray(new.ys.hi[0], np.float64) + np.asarray(new.ys.lo[0], np.float64)
-    )
-    scale = np.abs(y_old).max()
-    np.testing.assert_allclose(y_new, y_old, atol=scale * 2.0**-40, rtol=0)
-    np.testing.assert_allclose(
-        np.asarray(new.dy), np.asarray(old.dy),
-        atol=np.abs(np.asarray(old.dy)).max() * 1e-8, rtol=0,
-    )
+    mu_j = jnp.asarray(mu)
+    accel = lambda t, y: nbody.pairwise_accel(y, mu_j)  # noqa: E731
+    for k in range(e):
+        c = elm2_init(tab, accel, 0.0, jnp.asarray(pos[k]), jnp.asarray(vel[k]), h)
+        for _ in range(steps):
+            c = elm2_step(tab, accel, h, c)
+        np.testing.assert_allclose(
+            np.asarray(out.ys[0, k]), np.asarray(c.ys[0]), rtol=1e-13
+        )
+        np.testing.assert_allclose(
+            np.asarray(out.dy[k]), np.asarray(c.dy), rtol=1e-9,
+            atol=np.abs(np.asarray(c.dy)).max() * 1e-12,
+        )
 
 
-def test_shardmap_fused_ensemble_matches_unsharded():
-    """The shard_map x fused composition (members sharded on "data", each
-    shard running the pair-native Pallas scan) equals the unsharded fused
-    scan bitwise-at-f64 on the virtual mesh."""
-    e, n = 4, 16
-    rng = np.random.default_rng(17)
-    pos = rng.normal(size=(e, n, 3)) * 1.0e6
-    vel = rng.normal(size=(e, n, 3)) * 1.0
-    mu = rng.uniform(1.0e3, 1.0e5, size=n)
-    from ephemeris_explorer_tpu.integrators import get
-
-    tab = get("QuinlanTremaine12")
-    h = 600.0
-    steps = 10
-
-    carry0 = sh.init_fused_ensemble_carry(tab, mu, 0.0, pos, vel, h)
-
-    mesh = sh.make_mesh(data=4, model=2)
-    run_s, to_f = sh.make_shardmap_ensemble_scan_f(
-        mesh, tab, mu, h, steps, interpret=True, tile_rows=8, tile_cols=8
-    )
-    out_s = run_s(to_f(carry0))
-
-    run_u, to_f_u = sh.make_fused_ensemble_scan_f(
-        tab, mu, h, steps, interpret=True, tile_rows=8, tile_cols=8
-    )
-    out_u = run_u(to_f_u(carry0))
-
-    comb = lambda p: (
-        np.asarray(p.hi, np.float64) + np.asarray(p.lo, np.float64)
-    )
-    np.testing.assert_array_equal(comb(out_s.ys)[0], comb(out_u.ys)[0])
-    np.testing.assert_allclose(
-        np.asarray(out_s.dy), np.asarray(out_u.dy), rtol=1e-14, atol=1e-18
-    )
+MESHES = [(1, 8), (2, 4), (4, 2), (8, 1)]
 
 
-def test_rowsharded_pair_force_bitwise():
-    """The row-sharded production force (shard_map + rectangular two-float
-    Pallas kernel) is BITWISE identical to the unsharded square kernel for
-    equal tile_cols."""
-    from ephemeris_explorer_tpu.ops.pallas_nbody import (
-        pairwise_accel_df64, split_f64,
-    )
-
+@pytest.mark.parametrize("data,model", MESHES, ids=lambda v: str(v))
+def test_rowsharded_accel_mesh_shapes(data, model):
+    """The shard_map row decomposition over every factorisation of the
+    8-device mesh (model = 1 is the degenerate one-shard case)."""
+    mesh = sh.make_mesh(data=data, model=model)
+    rng = np.random.default_rng(model)
     n = 64
-    rng = np.random.default_rng(3)
     pos = jnp.asarray(rng.normal(size=(n, 3)) * 1e6)
     mu = jnp.asarray(rng.uniform(1e3, 1e5, n))
-    ph, plo = split_f64(pos, transpose=True)          # (3, N)
-    mu_hi, mu_lo = split_f64(mu.reshape(1, -1))
-
-    ref_hi, ref_lo = pairwise_accel_df64(
-        ph, plo, mu_hi, mu_lo, tile_rows=8, tile_cols=16, interpret=True
-    )
-
-    mesh = sh.make_mesh(data=1, model=8)
-    rows = jax.NamedSharding(mesh, jax.P("model", None))
-    ph_r = jax.device_put(ph.T, rows)                 # (N, 3) row-sharded
-    plo_r = jax.device_put(plo.T, rows)
-    out_hi, out_lo = sh.pairwise_accel_rowsharded_pair(
-        mesh, ph_r, plo_r, mu_hi, mu_lo,
-        interpret=True, tile_rows=8, tile_cols=16,
-    )
-    np.testing.assert_array_equal(np.asarray(out_hi), np.asarray(ref_hi))
-    np.testing.assert_array_equal(np.asarray(out_lo), np.asarray(ref_lo))
+    p = jax.device_put(pos, jax.NamedSharding(mesh, jax.P("model", None)))
+    m = jax.device_put(mu, jax.NamedSharding(mesh, jax.P("model")))
+    out = np.asarray(sh.pairwise_accel_rowsharded(mesh, p, m))
+    ref = np.asarray(nbody.pairwise_accel(pos, mu))
+    # shards sum in their own order: rounding relative to the field scale
+    np.testing.assert_allclose(out, ref, rtol=1e-12, atol=np.abs(ref).max() * 1e-14)
 
 
-def test_rowsharded_scan_f_bitwise():
-    """The N-axis fused scan (rings row-sharded, all_gather + rectangular
-    force, shard-local update kernel) equals the unsharded fused scan
-    bitwise on the virtual mesh."""
-    from ephemeris_explorer_tpu.integrators.multistep import (
-        elm2_f_from, elm2_init, elm2_step_f, elm2_velocity_f,
-    )
-    from ephemeris_explorer_tpu.ops.eft import TwoFloat
-    from ephemeris_explorer_tpu.ops.pallas_nbody import (
-        pairwise_accel_df64, split_f64,
-    )
+@pytest.mark.parametrize("data,model", MESHES, ids=lambda v: str(v))
+def test_sharded_ensemble_step_mesh_shapes(data, model):
+    """GSPMD ensemble step (E over "data", N over "model") on every mesh
+    factorisation equals the unsharded vmapped step."""
+    from ephemeris_explorer_tpu.integrators.multistep import elm2_init, elm2_step
 
-    n = 32
-    rng = np.random.default_rng(5)
-    pos = rng.normal(size=(n, 3)) * 1e6
-    vel = rng.normal(size=(n, 3))
-    mu = rng.uniform(1e3, 1e5, n)
+    mesh = sh.make_mesh(data=data, model=model)
     tab = get("QuinlanTremaine12")
-    h = 600.0
-    steps = 8
-
-    mu_j = jnp.asarray(mu)
-    accel = lambda t, y: nbody.pairwise_accel(y, mu_j)
-    carry0 = elm2_f_from(
-        elm2_init(tab, accel, 0.0, jnp.asarray(pos), jnp.asarray(vel), h)
-    )
-
-    # unsharded fused reference (square kernel, same tile_cols)
-    mu_hi, mu_lo = split_f64(mu_j.reshape(1, -1))
-
-    def accel_pair(t, y):
-        ph, plo = y.hi.T, y.lo.T
-        ah, al = pairwise_accel_df64(
-            ph, plo, mu_hi, mu_lo, tile_rows=8, tile_cols=16, interpret=True
-        )
-        return TwoFloat(ah, al)
-
-    ref = carry0
-    for _ in range(steps):
-        ref = elm2_step_f(tab, accel_pair, h, ref, interpret=True)
-    ref = ref._replace(dy=elm2_velocity_f(tab, ref, h))
-
-    mesh = sh.make_mesh(data=1, model=8)
-    run, to_f = sh.make_rowsharded_scan_f(
-        mesh, tab, mu, h, steps, interpret=True, tile_rows=8, tile_cols=16
-    )
-    out = run(carry0)
-
-    np.testing.assert_array_equal(np.asarray(out.ys.hi), np.asarray(ref.ys.hi))
-    np.testing.assert_array_equal(np.asarray(out.ys.lo), np.asarray(ref.ys.lo))
-    np.testing.assert_array_equal(np.asarray(out.dd.hi), np.asarray(ref.dd.hi))
-    # dy is reconstructed in plain f64 at the boundary; jit fuses the
-    # (y0-y1)/h + c*wsum chain with FMA contraction vs the eager reference
-    np.testing.assert_allclose(
-        np.asarray(out.dy), np.asarray(ref.dy), rtol=5e-16, atol=0
-    )
-
-
-def test_rowsharded_scan_qf_bitwise():
-    """The row-sharded PARITY engine (4-limb rings + 3-limb rectangular
-    force) equals the unsharded fused expansion scan bitwise."""
-    from ephemeris_explorer_tpu.integrators.multistep import (
-        elm2_init_q, elm2_qf_from_q, elm2_step_qf, elm2_velocity_qf,
-    )
-    from ephemeris_explorer_tpu.ops.pallas_nbody import (
-        pairwise_accel_limbs_pair, split_f64,
-    )
-
-    n = 32
-    rng = np.random.default_rng(7)
-    pos = rng.normal(size=(n, 3)) * 1e6
-    vel = rng.normal(size=(n, 3))
-    mu = rng.uniform(1e3, 1e5, n)
-    tab = get("QuinlanTremaine12")
-    h = 600.0
-    steps = 8
-
-    mu_j = jnp.asarray(mu)
-    accel = lambda t, y: nbody.pairwise_accel(y, mu_j)
-    carry0 = elm2_qf_from_q(
-        elm2_init_q(tab, accel, 0.0, jnp.asarray(pos), jnp.asarray(vel), h)
-    )
-
-    mu_hi, mu_lo = split_f64(mu_j.reshape(1, -1))
-
-    def accel_pair(t, limbs):
-        return pairwise_accel_limbs_pair(
-            limbs[0], limbs[1], limbs[2], mu_hi, mu_lo,
-            tile_rows=8, tile_cols=16, interpret=True,
-        )
-
-    ref = carry0
-    for _ in range(steps):
-        ref = elm2_step_qf(tab, accel_pair, h, ref, interpret=True)
-    ref = ref._replace(dy=elm2_velocity_qf(tab, ref, h))
-
-    mesh = sh.make_mesh(data=1, model=8)
-    run, to_qf = sh.make_rowsharded_scan_qf(
-        mesh, tab, mu, h, steps, interpret=True, tile_rows=8, tile_cols=16
-    )
-    out = run(carry0)
-
-    for k in range(4):
-        np.testing.assert_array_equal(
-            np.asarray(out.ys[k]), np.asarray(ref.ys[k])
-        )
-    np.testing.assert_array_equal(np.asarray(out.dd.hi), np.asarray(ref.dd.hi))
-    np.testing.assert_allclose(
-        np.asarray(out.dy), np.asarray(ref.dy), rtol=5e-16, atol=0
-    )
-
-
-def test_fused_ensemble_scan_fp_matches_f():
-    """The sublane-packed ensemble scan equals the unpacked fused scan
-    bitwise (packing is a pure layout change)."""
-    e, n = 2, 16
-    rng = np.random.default_rng(23)
-    pos = rng.normal(size=(e, n, 3)) * 1.0e6
+    rng = np.random.default_rng(data)
+    e, n = data, 8 * model
+    pos = rng.normal(size=(e, n, 3)) * 1e6
     vel = rng.normal(size=(e, n, 3))
-    mu = rng.uniform(1.0e3, 1.0e5, size=n)
-    tab = get("QuinlanTremaine12")
-    h = 600.0
-    steps = 6
-
-    carry0 = sh.init_fused_ensemble_carry(tab, mu, 0.0, pos, vel, h)
-    run_f, to_f = sh.make_fused_ensemble_scan_f(
-        tab, mu, h, steps, interpret=True, tile_rows=8, tile_cols=8
-    )
-    run_fp, to_fp = sh.make_fused_ensemble_scan_fp(
-        tab, mu, h, steps, shape=(e, n, 3), interpret=True,
-        tile_rows=8, tile_cols=8,
-    )
-    out_f = run_f(to_f(carry0))
-    out_fp = run_fp(to_fp(carry0))
-    o = out_f.ys.hi.shape[0]
-    unp = lambda x: np.asarray(x).reshape(o, e, n, 3)
-    np.testing.assert_array_equal(unp(out_fp.ys.hi), np.asarray(out_f.ys.hi))
-    np.testing.assert_array_equal(unp(out_fp.ys.lo), np.asarray(out_f.ys.lo))
-    np.testing.assert_array_equal(unp(out_fp.dd.hi), np.asarray(out_f.dd.hi))
-    np.testing.assert_allclose(
-        np.asarray(out_fp.dy), np.asarray(out_f.dy), rtol=5e-16, atol=0
-    )
-
-
-@pytest.mark.slow
-def test_rowsharded_scan_f_at_scale():
-    """Production composition past toy scale (round-4 item): N=1024 rows
-    sharded 8 ways, ORDER+2 steps — the ring shift x all_gather interplay
-    runs PAST the startup ring, with non-trivial tile boundaries (128 local
-    rows, 256-column tiles).  Bitwise vs the unsharded fused scan, same
-    tile_cols.  Interpret-mode Pallas; marked slow (~minutes on CPU CI)."""
-    from ephemeris_explorer_tpu.integrators.multistep import (
-        elm2_f_from, elm2_init, elm2_step_f, elm2_velocity_f,
-    )
-    from ephemeris_explorer_tpu.ops.eft import TwoFloat
-    from ephemeris_explorer_tpu.ops.pallas_nbody import (
-        pairwise_accel_df64, split_f64,
-    )
-
-    n = 1024
-    rng = np.random.default_rng(11)
-    # two clusters so distant/close pair geometries both occur
-    pos = np.concatenate([
-        rng.normal(size=(n // 2, 3)) * 1e6,
-        rng.normal(size=(n // 2, 3)) * 1e6 + 4e7,
-    ])
-    vel = rng.normal(size=(n, 3))
     mu = rng.uniform(1e3, 1e5, n)
-    tab = get("QuinlanTremaine12")
     h = 600.0
-    steps = tab.order + 2
-    tiles = dict(tile_rows=64, tile_cols=256)
+
+    carry = sh.init_ensemble_carry(mesh, tab, mu, 0.0, pos, vel, h)
+    out = sh.make_sharded_ensemble_step(mesh, tab, mu, h)(carry)
 
     mu_j = jnp.asarray(mu)
     accel = lambda t, y: nbody.pairwise_accel(y, mu_j)  # noqa: E731
-    carry0 = elm2_f_from(
-        elm2_init(tab, accel, 0.0, jnp.asarray(pos), jnp.asarray(vel), h)
-    )
-
-    mu_hi, mu_lo = split_f64(mu_j.reshape(1, -1))
-
-    def accel_pair(t, y):
-        ah, al = pairwise_accel_df64(
-            y.hi.T, y.lo.T, mu_hi, mu_lo, interpret=True, **tiles
-        )
-        return TwoFloat(ah, al)
-
-    @jax.jit
-    def ref_scan(c):
-        def body(c, _):
-            return elm2_step_f(tab, accel_pair, h, c, interpret=True), None
-
-        c, _ = jax.lax.scan(body, c, None, length=steps)
-        return c._replace(dy=elm2_velocity_f(tab, c, h))
-
-    ref = ref_scan(carry0)
-
-    mesh = sh.make_mesh(data=1, model=8)
-    run, to_f = sh.make_rowsharded_scan_f(
-        mesh, tab, mu, h, steps, interpret=True, **tiles
-    )
-    out = run(carry0)
-
-    assert np.all(np.isfinite(np.asarray(out.ys.hi)))
-    np.testing.assert_array_equal(np.asarray(out.ys.hi), np.asarray(ref.ys.hi))
-    np.testing.assert_array_equal(np.asarray(out.ys.lo), np.asarray(ref.ys.lo))
-    np.testing.assert_array_equal(np.asarray(out.dd.hi), np.asarray(ref.dd.hi))
-    np.testing.assert_allclose(
-        np.asarray(out.dy), np.asarray(ref.dy), rtol=5e-16, atol=0
-    )
-
-
-def test_rowsharded_scan_qf_precise_sums():
-    """The row-sharded parity engine with precise beta sums matches the
-    unsharded fused engine with the same flag.  Value-level (2^-50 of the
-    position) rather than bitwise: under interpret mode XLA:CPU fuses the
-    expansion renorm cascades differently per layout (the known re-rounding
-    hazard, ops/pallas_elm2.py docstring); on real Mosaic the composition
-    is exercised by tools/tpu_smoke.py."""
-    from ephemeris_explorer_tpu.integrators.multistep import (
-        elm2_init_q, elm2_qf_from_q, elm2_step_qf,
-    )
-    from ephemeris_explorer_tpu.ops.pallas_nbody import (
-        pairwise_accel_limbs_pair, split_f64,
-    )
-
-    n = 32
-    rng = np.random.default_rng(13)
-    pos = rng.normal(size=(n, 3)) * 1e6
-    vel = rng.normal(size=(n, 3))
-    mu = rng.uniform(1e3, 1e5, n)
-    tab = get("QuinlanTremaine12")
-    h = 600.0
-    steps = 6
-
-    mu_j = jnp.asarray(mu)
-    accel = lambda t, y: nbody.pairwise_accel(y, mu_j)  # noqa: E731
-    carry0 = elm2_qf_from_q(
-        elm2_init_q(tab, accel, 0.0, jnp.asarray(pos), jnp.asarray(vel), h)
-    )
-
-    mu_hi, mu_lo = split_f64(mu_j.reshape(1, -1))
-
-    def accel_pair(t, limbs):
-        return pairwise_accel_limbs_pair(
-            limbs[0], limbs[1], limbs[2], mu_hi, mu_lo,
-            tile_rows=8, tile_cols=16, interpret=True,
-        )
-
-    ref = carry0
-    for _ in range(steps):
-        ref = elm2_step_qf(
-            tab, accel_pair, h, ref, interpret=True, precise_sums=True
-        )
-
-    mesh = sh.make_mesh(data=1, model=8)
-    run, to_qf = sh.make_rowsharded_scan_qf(
-        mesh, tab, mu, h, steps, interpret=True, precise_sums=True,
-        tile_rows=8, tile_cols=16,
-    )
-    out = run(carry0)
-
-    y_ref = sum(np.asarray(l, np.float64) for l in ref.ys)
-    y_out = sum(np.asarray(l, np.float64) for l in out.ys)
-    np.testing.assert_allclose(
-        y_out, y_ref, atol=np.abs(y_ref).max() * 2.0**-50, rtol=0
-    )
-
-
-@pytest.mark.slow
-def test_rowsharded_scan_qf_precise_sums_at_scale():
-    """The PARITY production composition past toy scale (round-5 item):
-    the QF engine with precise beta sums — the extended-engine production
-    default — at N=1024 rows sharded 8 ways, ORDER+2 steps, so the ring
-    shift x all_gather interplay runs past the startup ring with
-    non-trivial tile boundaries (128 local rows, 256-column tiles).
-
-    Value-level (2^-50 of the position) rather than bitwise: on CPU
-    lowerings `_wsum_precise` routes to the native-f64 dot
-    (multistep._wsum_precise, the documented XLA:CPU exactness-folding
-    hazard), and interpret-mode XLA:CPU fuses the expansion renorm
-    cascades differently per layout.  The bitwise sharded-vs-unsharded
-    gate for the ACTUAL cascade runs on real Mosaic via
-    tools/tpu_smoke.py's rowsharded_scan_qf+psums leg."""
-    from ephemeris_explorer_tpu.integrators.multistep import (
-        elm2_init_q, elm2_qf_from_q, elm2_step_qf, elm2_velocity_qf,
-    )
-    from ephemeris_explorer_tpu.ops.pallas_nbody import (
-        pairwise_accel_limbs_pair, split_f64,
-    )
-
-    n = 1024
-    rng = np.random.default_rng(17)
-    # two clusters so distant/close pair geometries both occur
-    pos = np.concatenate([
-        rng.normal(size=(n // 2, 3)) * 1e6,
-        rng.normal(size=(n // 2, 3)) * 1e6 + 4e7,
-    ])
-    vel = rng.normal(size=(n, 3))
-    mu = rng.uniform(1e3, 1e5, n)
-    tab = get("QuinlanTremaine12")
-    h = 600.0
-    steps = tab.order + 2
-    tiles = dict(tile_rows=64, tile_cols=256)
-
-    mu_j = jnp.asarray(mu)
-    accel = lambda t, y: nbody.pairwise_accel(y, mu_j)  # noqa: E731
-    carry0 = elm2_qf_from_q(
-        elm2_init_q(tab, accel, 0.0, jnp.asarray(pos), jnp.asarray(vel), h)
-    )
-
-    mu_hi, mu_lo = split_f64(mu_j.reshape(1, -1))
-
-    def accel_pair(t, limbs):
-        return pairwise_accel_limbs_pair(
-            limbs[0], limbs[1], limbs[2], mu_hi, mu_lo, interpret=True,
-            **tiles,
-        )
-
-    @jax.jit
-    def ref_scan(c):
-        def body(c, _):
-            return (
-                elm2_step_qf(
-                    tab, accel_pair, h, c, interpret=True, precise_sums=True
-                ),
-                None,
-            )
-
-        c, _ = jax.lax.scan(body, c, None, length=steps)
-        return c._replace(dy=elm2_velocity_qf(tab, c, h, precise_sums=True))
-
-    ref = ref_scan(carry0)
-
-    mesh = sh.make_mesh(data=1, model=8)
-    run, to_qf = sh.make_rowsharded_scan_qf(
-        mesh, tab, mu, h, steps, interpret=True, precise_sums=True, **tiles
-    )
-    out = run(carry0)
-
-    y_ref = sum(np.asarray(l, np.float64) for l in ref.ys)
-    y_out = sum(np.asarray(l, np.float64) for l in out.ys)
-    assert np.all(np.isfinite(y_out))
-    np.testing.assert_allclose(
-        y_out, y_ref, atol=np.abs(y_ref).max() * 2.0**-50, rtol=0
-    )
-    np.testing.assert_allclose(
-        np.asarray(out.dy), np.asarray(ref.dy), rtol=1e-13, atol=0
-    )
+    ref = jax.vmap(
+        lambda p, v: elm2_step(tab, accel, h, elm2_init(tab, accel, 0.0, p, v, h))
+    )(jnp.asarray(pos), jnp.asarray(vel))
+    np.testing.assert_allclose(np.asarray(out.ys[0]), np.asarray(ref.ys[0]), rtol=1e-12)
+    np.testing.assert_allclose(np.asarray(out.dy), np.asarray(ref.dy), rtol=1e-10)
 
 
 def test_rowsharded_split_force_matches():
-    """The round-5 magnitude-split mode row-sharded over 8 devices:
-    refresh (top-k + exclusion table with the GLOBAL diagonal) must be
-    BITWISE vs unsharded (integer outputs), and the per-step force
-    (rectangular masked f32 kernel + fast strong-set correction
-    gathering from the all_gathered source set) within 1e-13 rowwise.
-
-    Value-level for the force, not bitwise, ON THIS CPU MESH ONLY:
-    every piece is bitwise sliced-vs-square when run standalone
-    (verified while building), but interpret-mode Pallas inlines the
-    eft chains into the enclosing jit where XLA:CPU fuses them
-    differently per program layout (measured ~4e-15 rowwise — the same
-    documented hazard as test_rowsharded_scan_qf_precise_sums_at_scale).
-    The BITWISE sharded-vs-unsharded gate runs on real Mosaic in
-    tools/tpu_smoke.py's split_rowsharded leg."""
-    from ephemeris_explorer_tpu.ops.pallas_nbody import (
+    """The magnitude-split mode row-sharded over 8 devices: refresh (top-k
+    + exclusion table with the GLOBAL diagonal) must be BITWISE vs
+    unsharded (integer outputs), and the per-step force (rectangular
+    masked f32 sum + f64 strong-set correction gathering from the
+    all_gathered source set) within 1e-13 rowwise (each program fuses
+    its own reduction order)."""
+    from ephemeris_explorer_tpu.ops.nbody_modes import (
         pairwise_accel_split, strong_pair_indices, strong_pair_mask,
     )
 
@@ -589,17 +207,14 @@ def test_rowsharded_split_force_matches():
         rng.normal(size=(n // 2, 3)) * 1e6 + 3e7,
     ])
     mu = rng.uniform(1e3, 1e5, n)
-    tiles = dict(tile_rows=8, tile_cols=16)
 
     pos_j = jnp.asarray(pos)
     mu_j = jnp.asarray(mu)
     idx_ref = strong_pair_indices(pos_j, mu_j, k=k)
     mask_ref = strong_pair_mask(idx_ref, n)
-    a_ref = pairwise_accel_split(pos_j, mu_j, idx_ref, mask_ref,
-                                 interpret=True, **tiles)
+    a_ref = pairwise_accel_split(pos_j, mu_j, idx_ref, mask_ref)
 
-    refresh, force = sh.make_rowsharded_split_force(
-        mesh, mu, k=k, interpret=True, **tiles)
+    refresh, force = sh.make_rowsharded_split_force(mesh, mu, k=k)
     p = jax.device_put(pos_j, jax.NamedSharding(mesh, jax.P("model", None)))
     def rowwise_close(a, ref):
         a, ref = np.asarray(a), np.asarray(ref)
@@ -614,9 +229,8 @@ def test_rowsharded_split_force_matches():
     # a second epoch: refreshed sets keep matching after the state moves
     p2 = p + jnp.asarray(rng.normal(size=(n, 3)) * 1e4)
     idx2, mask2 = refresh(p2)
-    idx2_ref = strong_pair_indices(p2, mu_j, k=k)
+    p2_one = jnp.asarray(np.asarray(p2))  # unsharded reference operand
+    idx2_ref = strong_pair_indices(p2_one, mu_j, k=k)
     np.testing.assert_array_equal(np.asarray(idx2), np.asarray(idx2_ref))
-    a2_ref = pairwise_accel_split(
-        p2, mu_j, idx2_ref, strong_pair_mask(idx2_ref, n),
-        interpret=True, **tiles)
+    a2_ref = pairwise_accel_split(p2_one, mu_j, idx2_ref, strong_pair_mask(idx2_ref, n))
     rowwise_close(force(p2, idx2, mask2), a2_ref)

@@ -306,7 +306,7 @@ lines = [
     "Verner, Tsitouras, Cash-Karp, Fehlberg, Blanes-Moan 2002, McLachlan, Forest-Ruth,",
     "PEFRL, Ruth, Adams-Bashforth, Quinlan-Tremaine 1990 MNRAS 318, Stormer-Cowell).",
     "Coefficients are kept as fractions.Fraction and evaluated to floats (f64, or",
-    "hi/lo f32 pairs for TPU extended precision) at integrator-construction time.",
+    "hi/lo f32 pairs for the extended precisions) at integrator-construction time.",
     '"""',
     "",
     "from fractions import Fraction as F",

@@ -1,17 +1,17 @@
 """Prime the persistent compile cache with the canonical shape set.
 
-Through a remote-compile toolchain every novel jitted shape costs minutes.
-The package bounds the shape universe (ephemeris.CHUNK_STEPS + the
-pow2/1.5x tail-bucket ladder, pow2 fleet widths, dynamic adaptive params),
-so a fresh box/process can pay those minutes ONCE, deliberately, instead of
-mid-session:
+Every novel jitted shape is a fresh compile.  The package bounds the shape
+universe (ephemeris.CHUNK_STEPS + the pow2/1.5x tail-bucket ladder, pow2
+fleet widths, dynamic adaptive params), so a fresh checkout can pay those
+compiles ONCE, deliberately, instead of mid-session:
 
     python tools/prime_cache.py                 # common set (~10 min cold)
     python tools/prime_cache.py --min-tail 16   # every ladder shape
     python tools/prime_cache.py --list          # show what would compile
 
-What gets compiled (each entry lands in JAX's persistent cache, location
-EET_JAX_CACHE_DIR — see ephemeris_explorer_tpu/__init__.py):
+What gets compiled (each entry lands in JAX's persistent cache: the
+directory ``JAX_COMPILATION_CACHE_DIR`` names, else ``.jax_cache/`` in the
+checkout — see ephemeris_explorer_tpu/__init__.py):
 
 * the generation scan + grouped-fit executable for CHUNK_STEPS and every
   tail-bucket ladder shape >= --min-tail (both the startup-chunk and the
@@ -19,9 +19,8 @@ EET_JAX_CACHE_DIR — see ephemeris_explorer_tpu/__init__.py):
   production precision ("auto");
 * the batched adaptive replan drivers (spacecraft._jitted_propagate_batch)
   at the interactive fleet widths (--widths, pow2-padded), for the default
-  ship method/knot budget, on the backend the router would pick — these
-  are the spawn/replan latency paths (docs/PERF.md "Small-batch
-  propagation belongs on the host").
+  ship method/knot budget, on the default device — these are the
+  spawn/replan latency paths.
 
 Reference UX being matched: instant app start from bundled data
 (ephemeris_explorer/src/load/mod.rs:66-84).
@@ -49,7 +48,7 @@ def main(argv=None) -> int:
     p.add_argument(
         "--widths", default="1,2,4",
         help="fleet batch widths to prime the replan driver at "
-        "(pow2-padded; the router picks cpu/device per width)",
+        "(pow2-padded)",
     )
     p.add_argument("--method", default="Verner87", help="ship integrator")
     p.add_argument("--list", action="store_true", help="print the shape set and exit")
